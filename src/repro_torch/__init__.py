@@ -1,0 +1,13 @@
+"""repro_torch — the PyTorch / CUDA port of ``repro`` for NVIDIA Hopper.
+
+The port mirrors the reference package's layout module for module
+(``repro_torch.core.fluid`` ports ``repro.core.fluid``, and so on) and
+imports nothing of it, nor JAX.  Entry points (``Sweep.run``,
+``simulator.run``) run on the card unless the caller passes
+``device="cpu"``; the per-flow CC stages launch the hand-written CUDA
+kernels of ``repro_torch.kernels.cc_step`` there.
+
+    from repro_torch.core import ScenarioSpec, Sweep, CCScheme, PAPER_CONFIG
+"""
+
+__all__ = ["core", "net", "kernels", "convert"]

@@ -1,0 +1,86 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor the
+reference package, and ``chip_smoke.py`` refuses to run without a GPU
+or without the repository around it."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    return env
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.net, "
+            "repro_torch.convert, repro_torch.kernels.cc_step, "
+            "repro_torch.kernels.build, repro_torch.core.experiments; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')); print(bad); assert not bad")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_port_file_imports_jax_or_reference():
+    for dirpath, _, files in os.walk(PORT):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                for n in names:
+                    top = n.split(".")[0]
+                    assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    """No card here: chip_smoke exits non-zero and prints no result —
+    from the repository, and alone in an empty directory."""
+    code = ("import runpy, sys, torch; "
+            "torch.cuda.is_available = lambda: False; "
+            "sys.argv = [sys.argv[1]]; "
+            "runpy.run_path(sys.argv[0], run_name='__main__')")
+    for script in (os.path.join(ROOT, "chip_smoke.py"),
+                   shutil.copy(os.path.join(ROOT, "chip_smoke.py"),
+                               tmp_path / "chip_smoke.py")):
+        out = subprocess.run([sys.executable, "-c", code, str(script)],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=os.path.dirname(str(script)))
+        assert out.returncode != 0, out.stdout
+        assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_refuses_even_with_a_gpu(tmp_path):
+    """Copied out of the repository, the script finds no port to drive."""
+    script = shutil.copy(os.path.join(ROOT, "chip_smoke.py"),
+                         tmp_path / "chip_smoke.py")
+    code = ("import runpy, sys, torch; "
+            "torch.cuda.is_available = lambda: True; "
+            "runpy.run_path(sys.argv[1], run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code, str(script)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(tmp_path))
+    assert out.returncode != 0, out.stdout
+    assert "not found" in out.stderr
+    assert '"ok"' not in out.stdout
