@@ -5,7 +5,8 @@ NamedTuples into numpy (``jax.tree.map(np.asarray, x)`` or
 ``jax.device_get``) and hands them here.  Every converter takes the
 reference's field names and nesting (``StepParams.mark``/``notif``/
 ``react`` and ``FluidState.cc`` are dicts) and batched ``[R, ...]``
-arrays, as the reference's ``Sweep`` stages them.
+arrays, as the reference's ``Sweep`` stages them.  ``device=None`` is
+the card, as everywhere in the port; pass ``device="cpu"`` for the CPU.
 
   * ``scenario_from_numpy``   -> ``repro_torch.core.fluid.Scenario``
   * ``scenario_dev_from_numpy`` -> ``ScenarioDev`` (integers as int64)
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.fluid import FluidState, Scenario, ScenarioDev, StepParams
+from .core.fluid import (FluidState, Scenario, ScenarioDev, StepParams,
+                         resolve_device)
 
 _STATE_INT = ("bc_stage", "t_stage", "path_idx", "t")
 _PARAM_INT = ("mark_code", "notif_code", "react_code", "route_code")
@@ -30,7 +32,7 @@ def _get(x, field):
     return x[field] if isinstance(x, dict) else getattr(x, field)
 
 
-def _tensor(a, dtype, device) -> torch.Tensor:
+def _tensor(a, dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device=device,
                                                         dtype=dtype)
 
@@ -45,7 +47,8 @@ def scenario_from_numpy(scn) -> Scenario:
     return Scenario(**{f: _get(scn, f) for f in Scenario._fields})
 
 
-def scenario_dev_from_numpy(sd, device="cpu") -> ScenarioDev:
+def scenario_dev_from_numpy(sd, device=None) -> ScenarioDev:
+    device = resolve_device(device)
     out = {}
     for f in ScenarioDev._fields:
         a = _get(sd, f)
@@ -55,7 +58,8 @@ def scenario_dev_from_numpy(sd, device="cpu") -> ScenarioDev:
     return ScenarioDev(**out)
 
 
-def step_params_from_numpy(par, device="cpu") -> StepParams:
+def step_params_from_numpy(par, device=None) -> StepParams:
+    device = resolve_device(device)
     out = {}
     for f in StepParams._fields:
         a = _get(par, f)
@@ -68,7 +72,8 @@ def step_params_from_numpy(par, device="cpu") -> StepParams:
     return StepParams(**out)
 
 
-def state_from_numpy(st, device="cpu") -> FluidState:
+def state_from_numpy(st, device=None) -> FluidState:
+    device = resolve_device(device)
     out = {}
     for f in FluidState._fields:
         a = _get(st, f)

@@ -400,11 +400,11 @@ def pad_scenario(scn: Scenario, n_flows: int, n_hops: int,
 
 
 def stack_scenarios(scns: Sequence[Scenario], n_vcs: int = 1, *,
-                    device="cpu"):
+                    device=None):
     """Pad to a common shape and stack into one batched ScenarioDev.
 
-    Returns (batched ScenarioDev on ``device``, padded host scenarios,
-    n_switches_max).  ``n_vcs`` is the sweep's shared
+    Returns (batched ScenarioDev on ``device`` (``None``: the card),
+    padded host scenarios, n_switches_max).  ``n_vcs`` is the sweep's shared
     ``LinkParams.n_vcs``.
     """
     F = max(s.routes.shape[0] for s in scns)
@@ -415,7 +415,8 @@ def stack_scenarios(scns: Sequence[Scenario], n_vcs: int = 1, *,
     n_sw = max(s.n_switches for s in scns)
     padded = [pad_scenario(s, F, H, L, n_paths=K) for s in scns]
     batched = _upload(ScenarioDev,
-                      [scenario_arrays(s, n_vcs) for s in padded], device)
+                      [scenario_arrays(s, n_vcs) for s in padded],
+                      resolve_device(device))
     return batched, padded, n_sw
 
 

@@ -394,9 +394,11 @@ def _upload(cls, arrays: list[dict], device):
 
 
 def scenario_device(scn: Scenario, n_vcs: int = 1, *,
-                    device="cpu") -> ScenarioDev:
-    """One scenario as a batched ``ScenarioDev`` with R = 1."""
-    return _upload(ScenarioDev, [scenario_arrays(scn, n_vcs)], device)
+                    device=None) -> ScenarioDev:
+    """One scenario as a batched ``ScenarioDev`` with R = 1
+    (``device=None`` is the card)."""
+    return _upload(ScenarioDev, [scenario_arrays(scn, n_vcs)],
+                   resolve_device(device))
 
 
 def _step_params_one(cfg: "CCConfig | CCSpec", *,
@@ -425,9 +427,10 @@ def _step_params_one(cfg: "CCConfig | CCSpec", *,
 
 
 def step_params(cfgs, *, temperature: float = 0.0,
-                device="cpu") -> StepParams:
+                device=None) -> StepParams:
     """Stack the configs' constants into a batched ``StepParams`` (one
-    config, or a sequence of them)."""
+    config, or a sequence of them; ``device=None`` is the card)."""
+    device = resolve_device(device)
     if isinstance(cfgs, (CCConfig, CCSpec)):
         cfgs = [cfgs]
     ones = [_step_params_one(c, temperature=temperature) for c in cfgs]
@@ -466,9 +469,11 @@ def state_arrays(scn: Scenario, cfg: "CCConfig | CCSpec",
 
 
 def init_state(scns, cfgs, delay_slots: int | None = None, *,
-               device="cpu") -> FluidState:
+               device=None) -> FluidState:
     """Batched initial state: one scenario and config (R = 1) or equal
-    length sequences of them, all padded to one shape."""
+    length sequences of them, all padded to one shape (``device=None``
+    is the card)."""
+    device = resolve_device(device)
     if isinstance(scns, Scenario):
         scns, cfgs = [scns], [cfgs]
     arrs = [state_arrays(s, c, delay_slots) for s, c in zip(scns, cfgs)]

@@ -135,6 +135,8 @@ def _launch(name: str, sym: str, xs, rows: torch.Tensor, n_out: int):
         raise ValueError(f"{name}: tensors on {dev} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
     outs = [torch.empty_like(xs[0]) for _ in range(n_out)]
+    if n == 0:                      # nothing to launch, nothing counted
+        return outs
     lib = _lib()
     stride = rows.shape[1] if rows.shape[0] > 1 else 0
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -43,7 +43,7 @@ def _specs(CCSpec, DCQCN, Rev):
 
 
 def _params():
-    port = step_params(_specs(SpecP, DP, RP))
+    port = step_params(_specs(SpecP, DP, RP), device="cpu")
     ref = [ref_step_params(s) for s in _specs(SpecR, DR, RR)]
     return port, ref
 

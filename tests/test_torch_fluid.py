@@ -116,8 +116,8 @@ def _stepwise(sweep, n_steps=N_STEPS):
     ref_step = jax.jit(jax.vmap(lambda s, d, p: fluidR.fluid_step(
         s, d, p, dt=dt, n_switches=n_sw, reduce="fused",
         dense_rows=dense_rows, n_vcs=n_vcs)))
-    sd_p = convert.scenario_dev_from_numpy(_np(sd))
-    par_p = convert.step_params_from_numpy(_np(par))
+    sd_p = convert.scenario_dev_from_numpy(_np(sd), device="cpu")
+    par_p = convert.step_params_from_numpy(_np(par), device="cpu")
     plan = fluidP.reduce_plan(sd_p, n_switches=n_sw, n_vcs=n_vcs,
                               dense_rows=dense_rows, dt=dt)
     packed = cc.pack_react_rows(par_p.react, par_p.line_rate, plan.dt)
@@ -126,12 +126,13 @@ def _stepwise(sweep, n_steps=N_STEPS):
                                  reduce="fused", n_vcs=n_vcs,
                                  packed_react=packed)
 
-    free = convert.state_from_numpy(_np(st))
+    free = convert.state_from_numpy(_np(st), device="cpu")
     events = {"cnp": 0, "marked": 0, "nonmin": 0}
     for t in range(n_steps):
         nxt, tr = ref_step(st, sd, par)
         ref_next = _np(nxt)
-        mine, mtr = port_step(convert.state_from_numpy(_np(st)))
+        mine, mtr = port_step(convert.state_from_numpy(_np(st),
+                                                       device="cpu"))
         _compare(ref_next, tr, convert.state_to_numpy(mine), mtr,
                  ("step", t))
         free, ftr = port_step(free)
@@ -212,7 +213,8 @@ def test_host_layer_matches_reference():
                 assert np.array_equal(np.asarray(getattr(sd_r, f)),
                                       sd_p[f]), f
             st_r = _np(R.init_state(a, cfg_r))
-            st_p = convert.state_to_numpy(fluidP.init_state(b, cfg_p))
+            st_p = convert.state_to_numpy(
+                fluidP.init_state(b, cfg_p, device="cpu"))
             for f in ("qh", "rate", "alpha", "np_tmr", "trig_buf", "paused"):
                 assert np.array_equal(getattr(st_r, f), getattr(st_p, f)[0])
             assert dense_rows_R(a) == fluidP.dense_reduce_rows(b)
@@ -230,8 +232,14 @@ def test_make_step_fn_needs_a_device_or_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fluidP.make_step_fn(scn, PAPER_CONFIG)
+    # the builders it pairs with default to the card too
+    for build in (lambda: fluidP.init_state(scn, PAPER_CONFIG),
+                  lambda: fluidP.scenario_device(scn),
+                  lambda: fluidP.step_params(PAPER_CONFIG)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     step = fluidP.make_step_fn(scn, PAPER_CONFIG, device="cpu")
-    st, tr = step(fluidP.init_state(scn, PAPER_CONFIG))
+    st, tr = step(fluidP.init_state(scn, PAPER_CONFIG, device="cpu"))
     assert st.t.tolist() == [1]
 
 
