@@ -9,22 +9,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
   3. kernels — each per-flow CC kernel against its plain PyTorch version
                on the card at the main-path shape (R=36 runs x F=4096
                flows) and at F in {1, 127, 129, 8193}: bitwise equal;
-               kernel / plain time and the bytes bound;
+               ``segment_reduce`` likewise at the DC shape (36 x 20,480
+               rows, C = 1, 2, 3) and the edge shapes; kernel / plain /
+               library time and the bound;
   4. paper   — the paper's section II sweep: 3 schemes x the incast
                scene (window and equal-work, both wirings) for 14 ms at
                dt = 1 us in one ``Sweep.run``; the orderings the paper
-               reports are asserted;
+               reports are asserted; rerun with ``use_kernels="mega"``
+               and held bitwise to the first run;
   5. golden  — both golden grids of ``tests/golden`` re-run on the card
                at their tolerances (K = 4 min/valiant/UGAL paths, PFC
                pathologies), each kernel launched once a step, and a
                second run of one grid must be bitwise equal to the first;
+               each grid rerun through the megakernel, bitwise equal;
   6. dc      — the main path at datacenter scale: the 36 CC stage
                combinations x a 4096-flow permutation on a 272-host
                dragonfly.  A 200-step window runs on the card and on the
                CPU (plain versions) and must agree; then 5000 steps on
-               the card give steps/s and peak device memory.  Kernel
-               launch counts are zeroed just before each path's run
-               (paper, each golden grid, dc) and read just after.
+               the card give steps/s and peak device memory;
+  7. mega    — the dc batch through the megakernel: 200 ``megastep``
+               launches held StepTrace by StepTrace to the flow tier,
+               ``megastep_block`` at F in {1, 127, 129, 8193}, then the
+               5000-step dc sweep as one launch per trace window, bitwise
+               equal to phase 6's result, with its steps/s and profile;
+  8. hotspot — half of 4096 flows into one host of the same dragonfly:
+               too skewed for the dense walk, so the segment sum runs on
+               the ``segment_reduce`` kernel; with ``reduce="pallas"`` and
+               on the CPU it must agree bitwise.
+Kernel launch counts are zeroed just before each path's run and read
+just after; every path asserts each of its kernels' exact count.
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +64,8 @@ FP32_FLOPS = 67e12
 #: steps of the DC-scale run, and of its card-vs-CPU window
 DC_STEPS = 5000
 DC_CHECK_STEPS = 200
+#: steps of the hotspot runs (card engines and the CPU window)
+HOT_STEPS = 200
 
 KERNELS = {
     # name: (TPU kernel it replaces, float32 ops per flow)
@@ -59,15 +74,53 @@ KERNELS = {
     "erp_step": ("src/repro/kernels/cc_step.py:241", 9),
     "swift_step": ("src/repro/kernels/cc_step.py:272", 13),
 }
+#: the whole-step kernels: name -> (source, TPU kernel it replaces)
+WHOLE_STEP = {
+    "segment_reduce": ("src/repro_torch/csrc/fluid_reduce.cu",
+                       "src/repro/kernels/fluid_reduce.py:67"),
+    "megastep": ("src/repro_torch/csrc/fluid_step.cu",
+                 "src/repro/kernels/fluid_step.py:232"),
+    "megastep_block": ("src/repro_torch/csrc/fluid_step.cu",
+                       "src/repro/kernels/fluid_step.py:243"),
+}
+#: float32 operations of the megakernel's step, counted from
+#: csrc/fluid_step.cu: per (flow, hop) of a step (generation, transfers,
+#: EWMA, PFC inputs, surplus, grants, marking) and per incidence entry
+#: walked (the 3 + 3 + 2 channel adds of the link sums)
+MEGA_OPS_PER_FLOW_HOP = 48
+MEGA_OPS_PER_ENTRY = 8
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def reset_counts() -> None:
+    from repro_torch.kernels import cc_step, fluid_reduce, fluid_step
+    for mod in (cc_step, fluid_reduce, fluid_step):
+        mod.reset_launch_counts()
+
+
+def counts() -> dict:
+    """Launches of every kernel of the port since ``reset_counts``."""
+    from repro_torch.kernels import cc_step, fluid_reduce, fluid_step
+    return {**cc_step.LAUNCHES, **fluid_reduce.LAUNCHES,
+            **fluid_step.LAUNCHES}
+
+
+def _expect(launches: dict, where: str, *, cc: int = 0, seg: int = 0,
+            step: int = 0, block: int = 0):
+    """Exactly these launches: ``cc`` of each CC kernel, ``seg`` of
+    segment_reduce, ``step`` megastep and ``block`` megastep_block."""
+    want = {**{k: cc for k in KERNELS}, "segment_reduce": seg,
+            "megastep": step, "megastep_block": block}
+    assert launches == want, (where, launches, want)
+
+
 def _launches_once_a_step(launches: dict, n_steps: int, where: str):
-    """Each kernel of the path launched exactly once a step."""
-    assert launches == {k: n_steps for k in KERNELS}, (where, launches)
+    """Each CC kernel of the flow path launched exactly once a step (the
+    dense walk sums the queues: no segment_reduce, no megakernel)."""
+    _expect(launches, where, cc=n_steps)
 
 
 def nvidia_smi() -> str:
@@ -86,8 +139,7 @@ def phase_build() -> dict:
     """Build every ``csrc/*.cu`` at once (one nvcc per source)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
-    names = sorted(f[:-3] for f in os.listdir(build.CSRC)
-                   if f.endswith(".cu"))
+    names = build.sources()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(build.build, names))
@@ -184,6 +236,22 @@ def _time_ms(fn, n: int = 100) -> tuple[float, float]:
     return device_ms, a.elapsed_time(b) / n
 
 
+def _event_ms(fn, n: int = 10) -> float:
+    """ms per call of ``fn`` issued eagerly, between two CUDA events
+    (for what a CUDA graph cannot capture: host syncs inside ``fn``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def _max_abs_err(a, b) -> float:
     import torch
     err = 0.0
@@ -237,6 +305,98 @@ def phase_kernels(device) -> dict:
     return out
 
 
+def _flows_sweep(F: int):
+    """F same-shaped flows on the legacy CLOS (F straddles the block
+    sizes: 1, 127, 129, 8193), DCQCN and DCQCN-Rev."""
+    from repro_torch.core import CCScheme, PAPER_CONFIG, ScenarioSpec, Sweep
+    pairs = [(i % 16, 16 + (i * 5) % 16) for i in range(F)]
+    spec = ScenarioSpec.flows(pairs, t_start=0.0, t_stop=0.5e-3,
+                              label=f"flows{F}")
+    return Sweep.grid(configs={s.name: PAPER_CONFIG.replace(scheme=s)
+                               for s in (CCScheme.DCQCN,
+                                         CCScheme.DCQCN_REV)},
+                      scenarios={f"f{F}": spec})
+
+
+def _seg_cases(device):
+    """(tag, data, rows, offsets) of segment_reduce: the fluid step's
+    walks (its CSR over the real queues) at the DC batch (C = 1, 2, 3)
+    and at F in {1, 127, 129, 8193}, plus the edge shapes."""
+    import torch
+    from repro_torch.kernels.fluid_reduce import csr_offsets
+    g = torch.Generator(device=device).manual_seed(12)
+    cases = []
+    for tag, sweep in [("dc", _dc_sweep())] + [
+            (f"F{F}", _flows_sweep(F)) for F in (1, 127, 129, 8193)]:
+        stg = sweep.prepare(1, device=device)
+        plan, n = stg.plan, stg.sd.alt_routes.numel()     # R*F*K*H rows
+        for C in ((1, 2, 3) if tag == "dc" else (3,)):
+            data = torch.randn((n, C), generator=g, device=device)
+            cases.append((f"{tag}_C{C}", data, plan.seg_rows, plan.seg_off))
+    z = torch.zeros((1,), dtype=torch.int64, device=device)
+    cases.append(("N0", torch.zeros((0, 2), device=device), None,
+                  z.expand(6).contiguous()))
+    ids = torch.tensor([3, 3, 7, 7, 7, 9], device=device)
+    cases.append(("empty_segments", torch.randn((6, 2), generator=g,
+                                                device=device),
+                  None, csr_offsets(ids, 12)))
+    cases.append(("one_segment", torch.randn((5000, 3), generator=g,
+                                             device=device), None,
+                  torch.tensor([0, 0, 5000, 5000], device=device)))
+    return cases
+
+
+def phase_segment_reduce(device) -> dict:
+    """segment_reduce bitwise against its plain version at every case;
+    timed (and against torch.segment_reduce) at the DC shape, C = 3."""
+    import torch
+    from repro_torch.kernels import fluid_reduce as FR
+    errs, dc = {}, None
+    for tag, data, rows, off in _seg_cases(device):
+        S = off.shape[0] - 1
+        got = FR.segment_reduce(data, None, S, rows=rows, offsets=off)
+        want = FR.segment_reduce_plain(data, off, rows)
+        torch.cuda.synchronize()
+        errs[tag] = _max_abs_err([got], [want])
+        if errs[tag] != 0.0:
+            raise AssertionError(f"segment_reduce differs from its plain "
+                                 f"version at {tag}: {errs[tag]}")
+        if tag == "dc_C3":
+            dc = (data, rows, off)
+    data, rows, off = dc
+    S, C = off.shape[0] - 1, data.shape[1]
+    M = rows.shape[0]
+    srt = data[rows]
+    lengths = off[1:] - off[:-1]
+    lib = torch.segment_reduce(srt, "sum", lengths=lengths, axis=0)
+    lib_same = bool(torch.equal(
+        lib, FR.segment_reduce(data, None, S, rows=rows, offsets=off)))
+    ms, eager_ms = _time_ms(lambda: FR.segment_reduce(
+        data, None, S, rows=rows, offsets=off))
+    # the plain version reads its walk length on the host: not capturable
+    plain_ms = _event_ms(lambda: FR.segment_reduce_plain(data, off, rows))
+    # torch.segment_reduce syncs with the host: not capturable either
+    library_ms = _event_ms(lambda: torch.segment_reduce(
+        srt, "sum", lengths=lengths, axis=0))
+    nbytes = 4 * M * C + 8 * M + 8 * (S + 1) + 4 * S * C
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = M * C / FP32_FLOPS * 1e3
+    row = {"name": "segment_reduce", "route": "cuda",
+           "source": WHOLE_STEP["segment_reduce"][0],
+           "replaces": WHOLE_STEP["segment_reduce"][1], "launches": None,
+           "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
+           "bound_by": "bytes" if b_ms >= o_ms else "operations",
+           "library_ms": library_ms}
+    emit({"phase": "kernels", "kernel": "segment_reduce",
+          "shape": [M, C, S], "bitwise_equal": errs, "us": ms * 1e3,
+          "plain_us": plain_ms * 1e3, "bound_us": row["bound_ms"] * 1e3,
+          "library_us": library_ms * 1e3, "eager_us": eager_ms * 1e3,
+          "library_bitwise_equal": lib_same,
+          "longest_segment": int(lengths.max()), "bytes": nbytes})
+    return row
+
+
 # ---------------------------------------------------------------------------
 # where a step's time goes (torch.profiler over a short window)
 # ---------------------------------------------------------------------------
@@ -247,15 +407,19 @@ _CC_KERNELS = (("gen_np_kernel", "gen_np_step"), ("erp_kernel", "erp_step"),
                ("swift_kernel", "swift_step"), ("rp_kernel", "rp_step"))
 
 
-def profile_steps(sweep, device, n: int = 20) -> dict:
+def profile_steps(sweep, device, n: int = 20, mega: bool = False) -> dict:
     """Profile ``n`` steps of ``sweep`` on the card: device busy time
     (sum of kernel durations on the one stream), the idle share of the
     wall time, kernels per step and the heaviest kernels.  The profiler
-    adds host time, so the idle share is an upper bound."""
+    adds host time, so the idle share is an upper bound.  ``mega``
+    times three ``megastep_block`` windows of ``n`` steps instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    stg = sweep.prepare(n, device=device)
+    stg = sweep.prepare(n, trace_every=n, device=device,
+                        use_kernels="mega" if mega else False)
+    if mega:
+        return _profile_windows(stg, n)
     st = stg.state
     for _ in range(3):
         st, _ = stg.step(st)
@@ -292,6 +456,32 @@ def profile_steps(sweep, device, n: int = 20) -> dict:
     return rec
 
 
+def _profile_windows(stg, n: int, windows: int = 3) -> dict:
+    """Device busy and idle share of ``windows`` back-to-back
+    ``megastep_block`` launches of ``n`` steps: each launch is the only
+    work on the stream, so CUDA events around it give its device time
+    (torch.profiler recorded no device events for this path)."""
+    import torch
+    st = stg.block(stg.state)[0]
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(windows)]
+    t0 = time.perf_counter()
+    for a, b in ev:
+        a.record()
+        st = stg.block(st)[0]
+        b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_ms = sum(a.elapsed_time(b) for a, b in ev)
+    steps = windows * n
+    return {"profiled_steps": steps, "device_timed_by": "cuda events",
+            "profiled_wall_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / wall,
+            "kernels_per_step": windows / steps}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the paper's section II sweep
 # ---------------------------------------------------------------------------
@@ -299,7 +489,6 @@ def profile_steps(sweep, device, n: int = 20) -> dict:
 def phase_paper(device) -> dict:
     from repro_torch.core import (CCScheme, PAPER_CONFIG, ScenarioSpec,
                                   Sweep)
-    from repro_torch.kernels import cc_step as K
     scen = {}
     for roll in (0, 1):
         scen[f"window{roll}"] = ScenarioSpec.paper_incast(roll=roll)
@@ -307,11 +496,12 @@ def phase_paper(device) -> dict:
     sweep = Sweep.grid(
         configs={s.name: PAPER_CONFIG.replace(scheme=s) for s in CCScheme},
         scenarios=scen)
-    K.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sweep.run(n_steps=14000, device=device)     # t_end = 14 ms
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = counts()
+    mega, _ = _mega_rerun(sweep, res, 14000, None, device, "paper")
     s = res.summary()
     comp = {x.name: s[f"{x.name}/volume0"]["completion_ms"]
             for x in CCScheme}
@@ -326,7 +516,7 @@ def phase_paper(device) -> dict:
            "completion_ms_volume_roll0": comp,
            "victim_gbps_roll0": vic, "rev_victim_gbps_roll1": vic1,
            "rev_aggregate_gbps_roll1": agg1, "launches": launches,
-           "profile": profile_steps(sweep, device)}
+           "mega": mega, "profile": profile_steps(sweep, device)}
     emit(rec)
     assert comp["DCQCN_REV"] < comp["PFC_ONLY"] < comp["DCQCN"], comp
     assert 4.5 < vic["DCQCN_REV"] < 7.0, vic          # ~5.7 GB/s
@@ -429,22 +619,43 @@ def _result_diff(a, b) -> tuple[bool, float, float]:
     return same, abs_d, rel_d
 
 
+def _mega_rerun(sweep, res, n_steps, trace_every, device, where) -> dict:
+    """Rerun ``sweep`` through the megakernel (one ``megastep_block``
+    launch per trace window) and hold it bitwise to the flow tier's
+    result ``res`` of the same call."""
+    reset_counts()
+    t0 = time.perf_counter()
+    mres = sweep.run(n_steps=n_steps, trace_every=trace_every,
+                     device=device, use_kernels="mega")
+    wall = time.perf_counter() - t0
+    launches = counts()
+    same, abs_d, _ = _result_diff(mres, res)
+    rec = {"wall_s": wall, "steps_per_s": n_steps / wall,
+           "bitwise_equal_flow_tier": same, "max_abs_diff": abs_d,
+           "windows": len(res.times), "launches": launches}
+    assert same, (where, "mega differs from the flow tier", abs_d)
+    _expect(launches, f"{where} mega", block=len(res.times))
+    return rec, mres
+
+
 def phase_golden(device) -> dict:
-    from repro_torch.kernels import cc_step as K
     rec = {"phase": "golden"}
     for build_grid in (_golden_routing, _golden_pathology):
         sweep, fname, fk, ck = build_grid()
         with open(os.path.join(GOLDEN, fname)) as f:
             n_steps = json.load(f)["n_steps"]
-        K.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = sweep.run(n_steps=n_steps, device=device)
         wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        launches = counts()
         n = _check_golden(res.summary(), os.path.join(GOLDEN, fname), fk, ck)
         rec[fname] = {"points": n, "steps": n_steps, "wall_s": wall,
                       "steps_per_s": n_steps / wall, "launches": launches}
         _launches_once_a_step(launches, n_steps, fname)
+        mega, mres = _mega_rerun(sweep, res, n_steps, None, device, fname)
+        _check_golden(mres.summary(), os.path.join(GOLDEN, fname), fk, ck)
+        rec[fname]["mega"] = mega
         if fname == "pfc_pathology.json":
             vic = {s: res[f"{s}/holvictim"].summary()["victim_slowdown"]
                    for s in ("DCQCN_REV", "DCQCN", "PFC_ONLY")}
@@ -478,7 +689,6 @@ def phase_dc(device) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.fluid import dense_reduce_rows
-    from repro_torch.kernels import cc_step as K
     sweep = _dc_sweep()
     R = len(sweep.points)
     scn = sweep.points[0].scenario
@@ -497,11 +707,11 @@ def phase_dc(device) -> dict:
              "card_wall_s": card_s, "cpu_wall_s": cpu_s}
     n_steps = DC_STEPS
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sweep.run(n_steps=n_steps, trace_every=100, device=device)
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
     fin = res.final
     finite = all(np.isfinite(np.asarray(x, np.float64)).all()
@@ -523,6 +733,193 @@ def phase_dc(device) -> dict:
     assert finite and delivered > 0, rec
     assert res.traces.delivered.shape == (R, n_steps // 100, 4096)
     _launches_once_a_step(launches, n_steps, "dc")
+    rec["result"] = res
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the dc batch through the megakernel
+# ---------------------------------------------------------------------------
+
+def _nbytes(*trees) -> int:
+    n = 0
+    for t in trees:
+        for x in t:
+            for y in (x.values() if isinstance(x, dict) else [x]):
+                n += y.numel() * y.element_size()
+    return n
+
+
+def _mega_bound(stg, n_steps: int, block: bool) -> tuple[float, str]:
+    """(least ms, what bounds it) of one megakernel launch: the state
+    read and written once, the scenario read once, the trace written
+    once, against MEGA_OPS_* float32 operations a step."""
+    sd, st = stg.sd, stg.state
+    R, F, K, H = sd.alt_routes.shape
+    scn = [getattr(sd, f) for f in (
+        "gen_rate", "t_start", "t_stop", "volume", "cap_ext", "nic_buffer",
+        "jitter", "sink_ext", "rtt", "alt_routes", "alt_hops", "vc",
+        "red_perm", "red_off", "pool_perm")]
+    trace = 4 * R * F * (3 if block else 2) + 4 * R * F + 16 * R
+    nbytes = 2 * _nbytes(st) + _nbytes(scn) + trace
+    entries = int(stg.plan.seg_rows.numel())
+    ops = n_steps * (MEGA_OPS_PER_FLOW_HOP * R * F * H
+                     + MEGA_OPS_PER_ENTRY * entries)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / FP32_FLOPS * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
+    import numpy as np
+    import torch
+    sweep = _dc_sweep()
+    R = len(sweep.points)
+    F = int(sweep.points[0].scenario.routes.shape[0])
+    n = DC_CHECK_STEPS
+    # megastep: n launches, StepTrace by StepTrace against the flow tier
+    stg = sweep.prepare(n, device=device)
+    stm = sweep.prepare(n, device=device, use_kernels="mega")
+    x, flow = stg.state, []
+    for _ in range(n):
+        x, tr = stg.step(x)
+        flow.append(tr)
+    reset_counts()
+    y = stm.state
+    for i in range(n):
+        y, tr = stm.step(y)
+        for f, u, v in zip(tr._fields, flow[i], tr):
+            assert torch.equal(u, v), ("megastep", i, f)
+    step_launches = counts()
+    _expect(step_launches, "megastep", step=n)
+    for f in x._fields:
+        a, b = getattr(x, f), getattr(y, f)
+        pairs = a.items() if isinstance(a, dict) else [(f, a)]
+        for k, u in pairs:
+            assert torch.equal(u, b[k] if isinstance(b, dict) else b), k
+    del flow
+    st0 = stm.state
+    # CUDA events over eager calls: a megakernel launch outlasts its
+    # host cost, so this is its device time; the plain version (the
+    # flow tier's step) is host-bound, and this is what it costs
+    step_ms = _event_ms(lambda: stm.step(st0), 20)
+    plain_ms = _event_ms(lambda: stg.step(st0), 5)
+    step_bound, step_by = _mega_bound(stm, 1, False)
+    # megastep_block at ragged flow counts
+    ragged = {}
+    for nf in (1, 127, 129, 8193):
+        sw = _flows_sweep(nf)
+        a = sw.run(n_steps=200, trace_every=10, device=device)
+        b = sw.run(n_steps=200, trace_every=10, device=device,
+                   use_kernels="mega")
+        same, abs_d, _ = _result_diff(b, a)
+        ragged[nf] = same
+        assert same, ("megastep_block", nf, abs_d)
+    # the dc sweep, one launch per trace window
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sweep.run(n_steps=DC_STEPS, trace_every=100, device=device,
+                    use_kernels="mega")
+    wall = time.perf_counter() - t0
+    block_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    same, abs_d, _ = _result_diff(res, dc["result"])
+    windows = DC_STEPS // 100
+    stb = sweep.prepare(100, trace_every=100, device=device,
+                        use_kernels="mega")
+    block_ms = _event_ms(lambda: stb.block(stb.state), 3)
+    block_plain_ms = _event_ms(
+        lambda: [stg.step(st0) for _ in range(100)], 1)
+    block_bound, block_by = _mega_bound(stb, 100, True)
+    rec = {"phase": "mega", "runs": R, "flows": F,
+           "megastep": {"steps": n, "bitwise_equal_flow_tier": True,
+                        "launches": step_launches, "us": step_ms * 1e3,
+                        "plain_us": plain_ms * 1e3,
+                        "bound_us": step_bound * 1e3},
+           "megastep_block_ragged_bitwise": ragged,
+           "sweep": {"steps": DC_STEPS, "windows": windows, "wall_s": wall,
+                     "steps_per_s": DC_STEPS / wall,
+                     "run_steps_per_s": R * DC_STEPS / wall,
+                     "flow_tier_steps_per_s": dc["steps_per_s"],
+                     "max_memory_allocated": peak,
+                     "bitwise_equal_flow_tier": same, "max_abs_diff": abs_d,
+                     "launches": block_launches,
+                     "window_us": block_ms * 1e3,
+                     "plain_window_us": block_plain_ms * 1e3,
+                     "bound_us": block_bound * 1e3},
+           "profile": profile_steps(sweep, device, n=100, mega=True)}
+    emit(rec)
+    assert same, ("mega dc sweep differs from the flow tier", abs_d)
+    assert res.traces.delivered.shape == (R, windows, F), \
+        res.traces.delivered.shape
+    _expect(block_launches, "mega dc", block=windows)
+    rows = {
+        "megastep": {"launches": step_launches["megastep"], "ms": step_ms,
+                     "plain_ms": plain_ms, "bound_ms": step_bound,
+                     "bound_by": step_by},
+        "megastep_block": {"launches": block_launches["megastep_block"],
+                           "ms": block_ms, "plain_ms": block_plain_ms,
+                           "bound_ms": block_bound, "bound_by": block_by}}
+    for name, row in rows.items():
+        row.update({"name": name, "route": "cuda",
+                    "source": WHOLE_STEP[name][0],
+                    "replaces": WHOLE_STEP[name][1], "max_abs_err": 0.0,
+                    "library_ms": None})
+    return rec, rows["megastep"], rows["megastep_block"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: a hotspot, too skewed for the dense walk
+# ---------------------------------------------------------------------------
+
+def _hotspot_sweep():
+    """Half of 4096 flows into host 0 of the DC cell's dragonfly, the
+    three paper schemes; flows open at 20 us so the window is busy."""
+    from repro_torch.core import CCScheme, PAPER_CONFIG, Sweep
+    from repro_torch.core.workloads import hotspot
+    from repro_torch.net import FabricSpec
+    spec = hotspot(4096, 272, t_start=20e-6).spec(
+        fabric=FabricSpec.dragonfly(4, 4, 4))
+    return Sweep.grid(configs={s.name: PAPER_CONFIG.replace(scheme=s)
+                               for s in CCScheme},
+                      scenarios={"hot4096": spec})
+
+
+def phase_hotspot(device) -> dict:
+    sweep = _hotspot_sweep()
+    stg = sweep.prepare(1, device=device)
+    assert stg.dense_rows == 0, stg.dense_rows
+    K = stg.sd.alt_routes.shape[2]
+    passes = 3 if K == 1 else 4
+    runs, rec = {}, {"phase": "hotspot", "runs": len(sweep.points),
+                     "flows": 4096, "steps": HOT_STEPS}
+    for tag, kw in (("segment_sum", {}), ("pallas", {"reduce": "pallas"})):
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[tag] = sweep.run(n_steps=HOT_STEPS, trace_every=100,
+                              device=device, **kw)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        rec[tag] = {"wall_s": wall, "steps_per_s": HOT_STEPS / wall,
+                    "launches": launches}
+        _expect(launches, f"hotspot {tag}", cc=HOT_STEPS,
+                seg=passes * HOT_STEPS)
+    t0 = time.perf_counter()
+    runs["cpu"] = sweep.run(n_steps=HOT_STEPS, trace_every=100,
+                            device="cpu")
+    rec["cpu_wall_s"] = time.perf_counter() - t0
+    rec["pallas_bitwise_equal"] = _result_diff(runs["pallas"],
+                                               runs["segment_sum"])[0]
+    rec["cpu_bitwise_equal"] = _result_diff(runs["cpu"],
+                                            runs["segment_sum"])[0]
+    rec["longest_queue"] = int((stg.plan.seg_off[1:]
+                                - stg.plan.seg_off[:-1]).max())
+    rec["delivered_gb"] = float(runs["segment_sum"].final.delivered.sum()
+                                / 1e9)
+    emit(rec)
+    assert rec["pallas_bitwise_equal"] and rec["cpu_bitwise_equal"], rec
+    assert rec["delivered_gb"] > 0, rec
     return rec
 
 
@@ -545,12 +942,17 @@ def main() -> int:
           "cuda": torch.version.cuda})
     phase_build()
     kern = phase_kernels(device)
+    seg = phase_segment_reduce(device)
     phase_paper(device)
     phase_golden(device)
     dc = phase_dc(device)
     for name, row in kern.items():
         row["launches"] = dc["launches"][name]
-    print(json.dumps({"kernels": list(kern.values())}), flush=True)
+    _, mstep, mblock = phase_mega(device, dc)
+    hot = phase_hotspot(device)
+    seg["launches"] = hot["segment_sum"]["launches"]["segment_reduce"]
+    rows = list(kern.values()) + [seg, mstep, mblock]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@
     shape and stacked into one batched ``ScenarioDev`` on the device.
   * ``Sweep``          — N (config, scenario) points advanced together:
     every step of every run is one pass over the ``[R, ...]`` batch,
-    and each per-flow CC kernel is one launch for all runs.
+    and each per-flow CC kernel is one launch for all runs; with
+    ``use_kernels="mega"`` each trace window of the whole batch is ONE
+    ``megastep_block`` launch (the run axis is the kernel's grid, where
+    the reference vmaps).
 
     from repro_torch.core import CCScheme, PAPER_CONFIG
     from repro_torch.core.experiments import ScenarioSpec, Sweep
@@ -27,16 +30,17 @@ from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import numpy as np
 
+from ..kernels import fluid_step as mega
 from . import cc
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
                     _step_body, check_routing_paths, clamp_dense_rows,
                     delay_depth, dense_reduce_rows, init_state,
-                    reduce_plan, refuse_unported, resolve_device,
-                    scenario_arrays, step_params, _upload)
+                    kernel_tier, reduce_plan, refuse_unported,
+                    resolve_device, scenario_arrays, step_params, _upload)
 from .params import CCConfig, CCSpec
 from .routing import PAD, route_hops
 from .simulator import (SimResult, TraceSample, _resolve_steps,
-                        decimating_scan)
+                        block_fn_for, decimating_scan)
 from .topology import Topology
 
 if TYPE_CHECKING:           # real import is lazy: repro_torch.net imports core
@@ -505,6 +509,8 @@ class Staged(NamedTuple):
     dense_rows: int
     n_samples: int
     trace_every: int
+    block: object = None      # mega tier: (FluidState) -> (FluidState,
+    #                           TraceSample), one launch per trace window
 
 
 def _refuse_mesh(mesh) -> None:
@@ -593,7 +599,9 @@ class Sweep:
                 min_switches: int | None = None, device=None):
         """Stack, pad and stage the batch on the device; returns a
         ``Staged`` whose ``step(state) -> (state, StepTrace)`` advances
-        every run one ``dt`` from the batched initial ``state``.
+        every run one ``dt`` from the batched initial ``state`` (one
+        ``megastep`` launch with ``use_kernels="mega"``, which also
+        stages ``block``: one ``megastep_block`` launch per window).
         """
         _refuse_mesh(mesh)
         refuse_unported(reduce=reduce, use_kernels=use_kernels,
@@ -630,9 +638,21 @@ class Sweep:
                               reduce=reduce, n_vcs=n_vcs,
                               packed_react=packed)
 
+        block = None
+        if kernel_tier(use_kernels) == "mega":
+            body, mplan = step, mega.mega_plan(par_b, packed, plan.dt)
+
+            def step(st):
+                return mega.megastep(st, sd_b, par_b, plan, mplan,
+                                     body=body, n_switches=n_sw,
+                                     n_vcs=n_vcs)
+
+            block = block_fn_for(sd_b, par_b, plan, n_switches=n_sw,
+                                 n_vcs=n_vcs, trace_every=k, dt=dt,
+                                 reduce=reduce)
         return Staged(step=step, state=st_b, sd=sd_b, par=par_b,
                       plan=plan, n_switches=n_sw, dense_rows=dense_rows,
-                      n_samples=n_samples, trace_every=k)
+                      n_samples=n_samples, trace_every=k, block=block)
 
     def run(self, n_steps: int | None = None,
             trace_every: int | None = None, *, mesh=None,
@@ -646,12 +666,15 @@ class Sweep:
         ``device=None`` runs on the card and raises when there is none;
         pass ``device="cpu"`` to run on the CPU.
 
-        ``reduce``: ``"fused"`` (default; on the card it needs the
-        dense-CSR walk, ``dense_rows > 0``) or ``"scat"`` (CPU only).
-        ``use_kernels`` False and True run the same path: the per-flow
-        CC stages launch their CUDA kernels on the card and their plain
-        versions on the CPU.  Not ported yet (NotImplementedError):
-        ``mesh=``, ``use_kernels="mega"``, ``reduce="pallas"``,
+        ``reduce``: ``"fused"`` (default: the dense-CSR walk, or the
+        ``segment_reduce`` kernel on the card where a queue is too
+        skewed for it), ``"pallas"`` (always ``segment_reduce``) or
+        ``"scat"`` (CPU only).  ``use_kernels`` False and True run the
+        same path: the per-flow CC stages launch their CUDA kernels on
+        the card and their plain versions on the CPU.
+        ``use_kernels="mega"`` makes each trace window of the whole
+        batch one ``megastep_block`` launch (not with ``"pallas"``).
+        Not ported yet (NotImplementedError): ``mesh=``,
         ``temperature > 0``.
 
         ``pad_runs_to`` / ``min_delay_slots`` / ``dense_rows`` /
@@ -669,7 +692,7 @@ class Sweep:
         n_samples, k = stg.n_samples, stg.trace_every
         final, tr = decimating_scan(stg.step, stg.state, n_samples, k,
                                     float(self.points[0].cfg.sim.dt),
-                                    self.n_vcs)
+                                    self.n_vcs, block_fn=stg.block)
         times = (np.arange(n_samples) + 1) * k * self.points[0].cfg.sim.dt
         # samples stack on axis 0 -> [T, R, ...]; runs lead on host
         traces = TraceSample(*[np.moveaxis(x.cpu().numpy(), 0, 1)[:R]

@@ -22,10 +22,18 @@ incidence order.  The port keeps that order everywhere:
     gathers into a ``[rows, R, S]`` table, then one add per row, left
     to right — deterministic on CPU and CUDA alike;
   * ``reduce="fused"`` with ``dense_rows == 0`` (segment sum) and
-    ``reduce="scat"``: ``index_add_``, in order on the CPU only.  On a
-    CUDA device these raise: their ordered device form is the
-    ``segment_reduce`` kernel of the next slice;
+    ``reduce="pallas"``: the ``kernels.fluid_reduce.segment_reduce``
+    kernel on CUDA (one thread per queue and channel walking its
+    contributors in order); on the CPU ``"pallas"`` runs that kernel's
+    plain version and the segment sum ``index_add_``, which is ordered
+    there;
+  * ``reduce="scat"``: ``index_add_`` per quantity, on the CPU only (it
+    is atomic and unordered on CUDA, so it raises there);
   * small per-flow sums over hops are sequential adds, as XLA does.
+
+``use_kernels="mega"`` runs the whole step as ONE launch of the
+``kernels.fluid_step`` megakernel on CUDA (its plain version, on the
+CPU, is ``_step_body`` itself), summing in the same orders.
 
 Only the hard dynamics are ported (``temperature > 0`` raises).
 
@@ -47,7 +55,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import fluid_step as mega
 from ..kernels.cc_step import gen_np_step
+from ..kernels.fluid_reduce import segment_reduce
 from . import cc
 from .params import CCConfig, CCSpec, ROUTING_MODES
 from .routing import PAD, link_incidence
@@ -160,14 +170,19 @@ class ReducePlan(NamedTuple):
     ``dense_src[p, r, q]`` is the flattened ``[R*F*K*H]`` row that
     position p of run r's queue q reads (sentinel ``R*F*K*H`` = a zero
     row); ``pool_src`` is the same for the per-switch pool sum over
-    ``[R*L]`` link rows.  ``seg_rows``/``seg_ids`` drive the CPU-only
-    segment-sum engine.
+    ``[R*L]`` link rows.  The segment-sum engines walk the CSR
+    ``seg_rows``/``seg_off`` over the R*S real queues (segment ``r*S +
+    q``; the scratch queue, which only ever holds zeros, is left out);
+    ``seg_ids`` is each walk entry's segment.  ``pool_off`` is the
+    per-run CSR of the pool over ``ScenarioDev.pool_perm``.
     """
 
     dense_src: "torch.Tensor | None"   # [rows, R, S] int64
     pool_src: torch.Tensor             # [rows_pool, R, n_switches] int64
-    seg_rows: torch.Tensor             # [R*F*K*H] int64 (sorted order)
-    seg_ids: torch.Tensor              # [R*F*K*H] int64 (r*(S+1) + seg)
+    seg_rows: torch.Tensor             # [M] int64 rows of [R*F*K*H]
+    seg_ids: torch.Tensor              # [M] int64 segment r*S + q
+    seg_off: torch.Tensor              # [R*S + 1] int64 CSR offsets
+    pool_off: torch.Tensor             # [R, n_switches + 1] int64
     dt: torch.Tensor                   # [] f32
 
 
@@ -291,7 +306,7 @@ def check_routing_paths(cfg: "CCConfig | CCSpec", scn: Scenario) -> None:
 
 def kernel_tier(use_kernels) -> str:
     """Normalise ``use_kernels``: False -> "off", True -> "flow",
-    "mega" -> the whole-step megakernel (not ported yet).
+    "mega" -> the whole-step megakernel (``kernels.fluid_step``).
 
     In the port "off" and "flow" run the same path: the per-flow stages
     always go through ``kernels.cc_step``, which launches its CUDA
@@ -310,19 +325,15 @@ def kernel_tier(use_kernels) -> str:
 
 def refuse_unported(*, reduce: str = "fused", use_kernels=False,
                     temperature=0.0) -> None:
-    """Raise for the reference options this slice does not port."""
+    """Raise for option values and combinations the port refuses."""
     if reduce not in ("fused", "pallas", "scat"):
         raise ValueError(
             f"reduce must be 'fused', 'pallas' or 'scat', got {reduce!r}")
-    if reduce == "pallas":
-        raise NotImplementedError(
-            "reduce='pallas' needs the segment_reduce kernel "
-            "(kernels/fluid_reduce.py), ported in slice 2")
-    if kernel_tier(use_kernels) == "mega":
-        raise NotImplementedError(
-            "use_kernels='mega' needs the megastep/megastep_block "
-            "whole-step kernels (kernels/fluid_step.py), ported in "
-            "slice 2")
+    if kernel_tier(use_kernels) == "mega" and reduce == "pallas":
+        raise ValueError(
+            "use_kernels='mega' runs the link sums inside its launch; "
+            "reduce must be 'fused' or 'scat' (the segment_reduce kernel "
+            "does not nest in the megakernel)")
     t = temperature
     if isinstance(t, torch.Tensor):
         t = float(t.max()) if t.numel() else 0.0
@@ -527,14 +538,23 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
     pool_src = np.where(ppos < counts[None],
                         (np.arange(R, dtype=np.int64) * L)[None, :, None]
                         + prow, R * L)
-    seg_rows = (base + perm).reshape(-1)
-    seg_ids = ((np.arange(R, dtype=np.int64) * (S + 1))[:, None]
-               + seg).reshape(-1)
+    pool_off = np.concatenate([np.zeros((R, 1), np.int64),
+                               np.cumsum(counts, axis=1)], axis=1)
+    # segment CSR over the real queues, run after run
+    n_real = off[:, S]                                       # [R]
+    seg_rows = np.concatenate([r * N + perm[r, :n_real[r]]
+                               for r in range(R)])
+    seg_ids = np.concatenate([r * S + seg[r, :n_real[r]]
+                              for r in range(R)])
+    walk0 = np.concatenate([[0], np.cumsum(n_real)[:-1]]).astype(np.int64)
+    seg_off = np.concatenate([(walk0[:, None] + off[:, :S]).reshape(-1),
+                              [int(n_real.sum())]])
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int64)) \
         .to(dev)                                                # noqa: E731
     return ReducePlan(
         dense_src=None if dense_src is None else t(dense_src),
         pool_src=t(pool_src), seg_rows=t(seg_rows), seg_ids=t(seg_ids),
+        seg_off=t(seg_off), pool_off=t(pool_off),
         dt=torch.tensor(dt, dtype=torch.float32, device=dev))
 
 
@@ -574,10 +594,10 @@ def _ordered_walk(data_ext: torch.Tensor, src: torch.Tensor):
 def _cpu_only(what: str, x: torch.Tensor) -> None:
     if x.device.type != "cpu":
         raise NotImplementedError(
-            f"{what} is CPU-only in this slice: index_add_ is atomic and "
-            f"unordered on CUDA; its ordered device form is the "
-            f"segment_reduce kernel (kernels/fluid_reduce.py), ported in "
-            f"slice 2")
+            f"{what} is CPU-only: index_add_ is atomic and unordered on "
+            f"CUDA; on the card use reduce='fused' or 'pallas', whose "
+            f"segment sums go through the ordered segment_reduce kernel "
+            f"(kernels/fluid_reduce.py)")
 
 
 def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
@@ -589,11 +609,13 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
     (state, trace).
 
     ``reduce``: ``"fused"`` (the ordered dense-CSR walk when
-    ``dense_rows > 0``, else the CPU segment sum) or ``"scat"`` (the
-    reference's scatter baseline, CPU only).  ``use_kernels`` False and
-    True run the same path (see ``kernel_tier``).  ``plan`` and
-    ``packed_react`` are built here when not given; callers stepping
-    many times build them once (``make_step_fn``, ``Sweep.run``).
+    ``dense_rows > 0``, else the segment sum), ``"pallas"`` (the
+    ``segment_reduce`` kernel) or ``"scat"`` (the reference's scatter
+    baseline, CPU only).  ``use_kernels`` False and True run the same
+    path; ``"mega"`` runs the whole step as one ``megastep`` launch on
+    the card (see ``kernel_tier``).  ``plan`` and ``packed_react`` are
+    built here when not given; callers stepping many times build them
+    once (``make_step_fn``, ``Sweep.run``).
     """
     refuse_unported(reduce=reduce, use_kernels=use_kernels,
                     temperature=par.temperature)
@@ -603,8 +625,17 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
                            else 0, dt=dt)
     if packed_react is None:
         packed_react = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
-    return _step_body(st, sd, par, plan, n_switches=n_switches,
-                      reduce=reduce, n_vcs=n_vcs, packed_react=packed_react)
+
+    def body(s):
+        return _step_body(s, sd, par, plan, n_switches=n_switches,
+                          reduce=reduce, n_vcs=n_vcs,
+                          packed_react=packed_react)
+
+    if kernel_tier(use_kernels) == "mega":
+        return mega.megastep(st, sd, par, plan,
+                             mega.mega_plan(par, packed_react, plan.dt),
+                             body=body, n_switches=n_switches, n_vcs=n_vcs)
+    return body(st)
 
 
 def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
@@ -619,8 +650,6 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
     dev = st.nicq.device
     dt = plan.dt
     f32 = torch.float32
-    if fused and plan.dense_src is None:
-        _cpu_only("reduce='fused' with dense_rows=0 (segment sum)", st.nicq)
     if not fused:
         _cpu_only("reduce='scat'", st.nicq)
     col = lambda x: x[:, None]                         # noqa: E731
@@ -655,13 +684,17 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
                       == k_sel[:, :, None].long())     # [R, F, K]
             data = data[:, :, None] * onehot[:, :, :, None, None].to(f32)
         data = data.reshape(R * F * K * H, C)
-        if plan.dense_src is not None:
+        if plan.dense_src is not None and reduce == "fused":
             ext = torch.cat([data, data.new_zeros((1, C))])
             acc = _ordered_walk(ext, plan.dense_src)   # [R, S, C]
-            sums = torch.cat([acc, acc.new_zeros((R, 1, C))], dim=1)
-        else:
-            sums = data.new_zeros((R * (S + 1), C)).index_add_(
-                0, plan.seg_ids, data[plan.seg_rows]).reshape(R, S + 1, C)
+        elif reduce == "pallas" or data.device.type != "cpu":
+            acc = segment_reduce(data, None, R * S, rows=plan.seg_rows,
+                                 offsets=plan.seg_off).reshape(R, S, C)
+        else:                       # CPU segment sum: index_add_ in order
+            acc = data.new_zeros((R * S, C)).index_add_(
+                0, plan.seg_ids, data[plan.seg_rows]).reshape(R, S, C)
+        # the scratch queue S (PAD hops) only ever sums zeros
+        sums = torch.cat([acc, acc.new_zeros((R, 1, C))], dim=1)
         return [sums[:, :, c] for c in range(C)]
 
     def scat(values, idx, n):
@@ -913,7 +946,8 @@ def make_step_fn(scn: Scenario, cfg: "CCConfig | CCSpec",
                  temperature: float = 0.0, device=None):
     """Returns ``step(state) -> (state, StepTrace)`` for one scenario
     run as a batch of R = 1 (``init_state(scn, cfg, device=...)``
-    builds the matching state).  ``device=None`` is the card."""
+    builds the matching state).  ``device=None`` is the card;
+    ``use_kernels="mega"`` makes each step one ``megastep`` launch."""
     if delay_slots is not None:
         _check_delay(scn, delay_slots)
     check_routing_paths(cfg, scn)
@@ -937,4 +971,12 @@ def make_step_fn(scn: Scenario, cfg: "CCConfig | CCSpec",
         return _step_body(st, sd, par, plan, n_switches=n_sw, reduce=reduce,
                           n_vcs=n_vcs, packed_react=packed)
 
-    return step
+    if kernel_tier(use_kernels) != "mega":
+        return step
+    mplan = mega.mega_plan(par, packed, plan.dt)
+
+    def mega_step(st: FluidState):
+        return mega.megastep(st, sd, par, plan, mplan, body=step,
+                             n_switches=n_sw, n_vcs=n_vcs)
+
+    return mega_step

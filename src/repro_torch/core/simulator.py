@@ -3,9 +3,10 @@
 ``decimating_scan`` advances a batched state one ``dt`` at a time in a
 Python loop and folds the steps into trace windows on the device (one
 ``TraceSample`` per ``trace_every`` steps); only the decimated samples
-come back to the host.  ``run`` drives one (scenario, config) point as a
-batch of one; batched sweeps live in ``experiments.py`` and share the
-same loop.  ``SimResult`` and its metrics are the reference's, verbatim.
+come back to the host.  With ``use_kernels="mega"`` a whole window is
+one ``megastep_block`` launch instead (``make_block_fn``).  ``run``
+drives one (scenario, config) point as a batch of one; batched sweeps
+live in ``experiments.py`` and share the same loop.  ``SimResult`` and its metrics are the reference's, verbatim.
 """
 
 from __future__ import annotations
@@ -16,8 +17,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .fluid import (FluidState, Scenario, init_state, make_step_fn,
-                    resolve_device)
+from ..kernels import fluid_step as mega
+from . import cc
+from .fluid import (FluidState, Scenario, _step_body, check_routing_paths,
+                    dense_reduce_rows, init_state, kernel_tier,
+                    make_step_fn, reduce_plan, refuse_unported,
+                    resolve_device, scenario_device, step_params)
 from .params import CCConfig
 
 
@@ -84,13 +89,24 @@ def _window_sample(st: FluidState, d0, acc, window: torch.Tensor
 
 
 def decimating_scan(step, st: FluidState, n_samples: int,
-                    trace_every: int, dt: float, n_vcs: int = 1):
+                    trace_every: int, dt: float, n_vcs: int = 1, *,
+                    block_fn=None):
     """Run ``n_samples * trace_every`` steps, emitting one TraceSample
     per ``trace_every`` steps.  Returns ``(final state, TraceSample of
-    [T, R, ...] tensors)``, all still on the state's device."""
+    [T, R, ...] tensors)``, all still on the state's device.
+
+    ``block_fn(state) -> (state, TraceSample)`` replaces the per-step
+    loop with one call per trace window (the megakernel's whole-window
+    launch); ``step`` / ``trace_every`` / ``dt`` / ``n_vcs`` are unused
+    then (the block closes over them)."""
+    samples = []
+    if block_fn is not None:
+        for _ in range(n_samples):
+            st, sample = block_fn(st)
+            samples.append(sample)
+        return st, TraceSample(*[torch.stack(f) for f in zip(*samples)])
     window = torch.tensor(trace_every * dt, dtype=torch.float32,
                           device=st.nicq.device)
-    samples = []
     for _ in range(n_samples):
         d0 = st.delivered
         acc = _zero_accum(st, n_vcs)
@@ -99,6 +115,56 @@ def decimating_scan(step, st: FluidState, n_samples: int,
             acc = _acc_update(acc, tr)
         samples.append(_window_sample(st, d0, acc, window))
     return st, TraceSample(*[torch.stack(f) for f in zip(*samples)])
+
+
+def block_fn_for(sd, par, plan, *, n_switches: int, n_vcs: int,
+                 trace_every: int, dt: float, reduce: str = "fused"):
+    """``block(state) -> (state, TraceSample)``: one ``megastep_block``
+    launch per trace window of a staged batch (on the CPU its plain
+    version: the port's step and the host's window fold)."""
+    packed = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
+    window = torch.tensor(trace_every * dt, dtype=torch.float32,
+                          device=plan.dt.device)
+    mplan = mega.mega_plan(par, packed, plan.dt,
+                           window=float(trace_every * dt))
+
+    def body(s):
+        return _step_body(s, sd, par, plan, n_switches=n_switches,
+                          reduce=reduce, n_vcs=n_vcs, packed_react=packed)
+
+    def block(st: FluidState):
+        return mega.megastep_block(
+            st, sd, par, plan, mplan, body=body, n_substeps=trace_every,
+            acc_init=_zero_accum, acc_update=_acc_update,
+            make_sample=lambda s, d0, acc: _window_sample(s, d0, acc,
+                                                          window),
+            n_vcs=n_vcs, n_switches=n_switches)
+
+    return block
+
+
+def make_block_fn(scn: Scenario, cfg: CCConfig, trace_every: int, *,
+                  reduce: str = "fused", dense_rows: int | None = None,
+                  device=None):
+    """Megakernel analogue of ``make_step_fn``: ``block(state) ->
+    (state, TraceSample)`` runs ``trace_every`` steps of one scenario
+    (R = 1) as ONE ``megastep_block`` launch on the card."""
+    refuse_unported(reduce=reduce, use_kernels="mega")
+    check_routing_paths(cfg, scn)
+    dev = resolve_device(device)
+    n_vcs = int(getattr(cfg.link, "n_vcs", 1))
+    sd = scenario_device(scn, n_vcs=n_vcs, device=dev)
+    par = step_params(cfg, device=dev)
+    if dense_rows is None:
+        dense_rows = dense_reduce_rows(scn, n_vcs) if reduce == "fused" \
+            else 0
+    n_sw = int(scn.n_switches)
+    plan = reduce_plan(sd, n_switches=n_sw, n_vcs=n_vcs,
+                       dense_rows=dense_rows if reduce == "fused" else 0,
+                       dt=float(cfg.sim.dt))
+    return block_fn_for(sd, par, plan, n_switches=n_sw, n_vcs=n_vcs,
+                        trace_every=trace_every, dt=float(cfg.sim.dt),
+                        reduce=reduce)
 
 
 def _resolve_steps(cfg: CCConfig, n_steps: int | None,
@@ -314,17 +380,24 @@ def run(scn: Scenario, cfg: CCConfig, n_steps: int | None = None,
     pass ``device="cpu"`` to run on the CPU.  ``trace_every`` defaults
     to ``cfg.sim.trace_every``; ``n_steps`` is rounded up to a whole
     number of trace windows.  ``reduce`` / ``use_kernels`` as in
-    ``fluid.fluid_step``.
+    ``fluid.fluid_step``; ``use_kernels="mega"`` makes each trace window
+    one ``megastep_block`` launch.
     """
     from ..convert import state_to_numpy
     dev = resolve_device(device)
     n_samples, k = _resolve_steps(cfg, n_steps, trace_every)
     n_vcs = int(getattr(cfg.link, "n_vcs", 1))
-    step = make_step_fn(scn, cfg, reduce=reduce, use_kernels=use_kernels,
-                        device=dev)
     st0 = init_state(scn, cfg, device=dev)
-    final, tr = decimating_scan(step, st0, n_samples, k,
-                                float(cfg.sim.dt), n_vcs)
+    if kernel_tier(use_kernels) == "mega":
+        block = make_block_fn(scn, cfg, k, reduce=reduce, device=dev)
+        final, tr = decimating_scan(None, st0, n_samples, k,
+                                    float(cfg.sim.dt), n_vcs,
+                                    block_fn=block)
+    else:
+        step = make_step_fn(scn, cfg, reduce=reduce,
+                            use_kernels=use_kernels, device=dev)
+        final, tr = decimating_scan(step, st0, n_samples, k,
+                                    float(cfg.sim.dt), n_vcs)
     tr = TraceSample(*[x[:, 0].cpu().numpy() for x in tr])
     fin = state_to_numpy(final)
     # (i+1)*k first (exact int), then *dt — so decimated times are the

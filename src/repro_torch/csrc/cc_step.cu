@@ -24,33 +24,16 @@
 // the parameter row is one L1/L2-resident read per thread.
 //
 // Rounding: the parity contract holds these kernels BITWISE equal to
-// their plain PyTorch versions (repro_torch/kernels/cc_step.py), which
-// round after every operation.  So every multiply, add, subtract and
-// divide is written with an explicit round-to-nearest intrinsic
-// (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn): the compiler never
-// contracts those into an FMA.  Build without --use_fast_math.
-// max/min follow torch.maximum/minimum: NaN in, NaN out, else fmaxf.
+// their plain PyTorch versions (repro_torch/kernels/cc_step.py).  The
+// per-flow arithmetic lives in cc_device.cuh, shared with the whole-step
+// megakernel (fluid_step.cu), where every operation is an explicit
+// round-to-nearest intrinsic.  Build without --use_fast_math.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "cc_device.cuh"
 
 namespace {
-
-__device__ __forceinline__ float tmax(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return fmaxf(a, b);
-}
-
-__device__ __forceinline__ float tmin(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return fminf(a, b);
-}
-
-__device__ __forceinline__ float tclip(float x, float lo, float hi) {
-  return tmin(tmax(x, lo), hi);
-}
 
 constexpr int kThreads = 256;
 
@@ -79,18 +62,13 @@ __global__ void gen_np_kernel(const float* __restrict__ par,
   long long i = flat_index();
   if (i >= n) return;
   const float* p = par + (i / F) * par_stride;
-  const float t_sec = p[0];
-  const float dt = p[1];
-  const bool active = (t_sec >= t_start[i]) && (t_sec < t_stop[i]);
-  const float off = offered[i];
-  float gen = __fmul_rn(active ? gen_rate[i] : 0.0f, dt);
-  gen = tmin(gen, tmax(__fsub_rn(volume[i], off), 0.0f));
-  const float q = __fadd_rn(nicq[i], gen);
-  const float over = tmax(__fsub_rn(q, nic_buffer[i]), 0.0f);
-  o_nicq[i] = __fsub_rn(q, over);
-  o_off[i] = __fsub_rn(__fadd_rn(off, gen), over);
-  o_drop[i] = __fadd_rn(dropped[i], over);
-  o_tmr[i] = __fadd_rn(np_tmr[i], dt);
+  const cc::GenNp o = cc::gen_np_flow(
+      p[0], p[1], cc::GenNp{nicq[i], offered[i], dropped[i], np_tmr[i]},
+      gen_rate[i], t_start[i], t_stop[i], volume[i], nic_buffer[i]);
+  o_nicq[i] = o.nicq;
+  o_off[i] = o.offered;
+  o_drop[i] = o.dropped;
+  o_tmr[i] = o.np_tmr;
 }
 
 // ---- DCQCN reaction point ----------------------------------------------
@@ -118,66 +96,18 @@ __global__ void rp_kernel(const float* __restrict__ par,
   long long i = flat_index();
   if (i >= n) return;
   const float* p = par + (i / F) * par_stride;
-  const float g = p[0], rate_decrease = p[1], timer_T = p[2];
-  const float byte_B = p[3], rai = p[4], rhai = p[5], fr_stages = p[6];
-  const float min_rate = p[7], line_rate = p[8], dt = p[9];
-
-  const float rate = rate_in[i];
-  float target = target_in[i];
-  float alpha = alpha_in[i];
-  float byte_cnt = byte_cnt_in[i];
-  float tmr = tmr_in[i];
-  float alpha_tmr = __fadd_rn(alpha_tmr_in[i], dt);
-  float bc_stage = bc_stage_in[i];
-  float t_stage = t_stage_in[i];
-  const bool cnp = cnp_in[i] > 0.0f;
-
-  const float one_minus_g = __fsub_rn(1.0f, g);
-  const bool a_tick = alpha_tmr >= timer_T;
-  if (a_tick) {
-    alpha = __fmul_rn(one_minus_g, alpha);
-    alpha_tmr = 0.0f;
-  }
-  float new_rate = rate;
-  if (cnp) {
-    target = rate;
-    new_rate = __fmul_rn(rate, __fsub_rn(1.0f, __fmul_rn(alpha, rate_decrease)));
-    alpha = __fadd_rn(__fmul_rn(one_minus_g, alpha), g);
-    byte_cnt = 0.0f;
-    tmr = 0.0f;
-    alpha_tmr = 0.0f;
-    bc_stage = 0.0f;
-    t_stage = 0.0f;
-  } else {
-    byte_cnt = __fadd_rn(byte_cnt, __fmul_rn(rate, dt));
-    tmr = __fadd_rn(tmr, dt);
-  }
-  float r = new_rate;
-
-  const bool b_ev = byte_cnt >= byte_B;
-  const bool t_ev = tmr >= timer_T;
-  if (b_ev) byte_cnt = 0.0f;
-  if (t_ev) tmr = 0.0f;
-  bc_stage = __fadd_rn(bc_stage, b_ev ? 1.0f : 0.0f);
-  t_stage = __fadd_rn(t_stage, t_ev ? 1.0f : 0.0f);
-  const bool ev = b_ev || t_ev;
-  const float imax = tmax(bc_stage, t_stage);
-  const float imin = tmin(bc_stage, t_stage);
-  const bool in_fr = imax <= fr_stages;
-  const bool in_hyper = imin > fr_stages;
-  if (ev && !in_fr && !in_hyper) target = __fadd_rn(target, rai);
-  if (ev && in_hyper)
-    target = __fadd_rn(target, __fmul_rn(rhai, __fsub_rn(imin, fr_stages)));
-  if (ev) r = __fmul_rn(0.5f, __fadd_rn(r, target));
-
-  o_rate[i] = tclip(r, min_rate, line_rate);
-  o_target[i] = tclip(target, min_rate, line_rate);
-  o_alpha[i] = alpha;
-  o_byte_cnt[i] = byte_cnt;
-  o_tmr[i] = tmr;
-  o_alpha_tmr[i] = alpha_tmr;
-  o_bc_stage[i] = bc_stage;
-  o_t_stage[i] = t_stage;
+  const cc::RP o = cc::rp_flow(
+      p, cc::RP{rate_in[i], target_in[i], alpha_in[i], byte_cnt_in[i],
+                tmr_in[i], alpha_tmr_in[i], bc_stage_in[i], t_stage_in[i]},
+      cnp_in[i] > 0.0f);
+  o_rate[i] = o.rate;
+  o_target[i] = o.target;
+  o_alpha[i] = o.alpha;
+  o_byte_cnt[i] = o.byte_cnt;
+  o_tmr[i] = o.tmr;
+  o_alpha_tmr[i] = o.alpha_tmr;
+  o_bc_stage[i] = o.bc_stage;
+  o_t_stage[i] = o.t_stage;
 }
 
 // ---- the paper's ERP ----------------------------------------------------
@@ -194,19 +124,9 @@ __global__ void erp_kernel(const float* __restrict__ par,
   long long i = flat_index();
   if (i >= n) return;
   const float* p = par + (i / F) * par_stride;
-  const float settle = p[0], hold_T = p[1], min_rate = p[2];
-  const float line_rate = p[3], dt = p[4];
-  const bool cnp = cnp_in[i] > 0.0f;
-  float rate = rate_in[i];
-  float hold;
-  if (cnp) {
-    rate = tmax(__fmul_rn(settle, tgt_rx[i]), min_rate);
-    hold = hold_T;
-  } else {
-    hold = tmax(__fsub_rn(hold_in[i], dt), 0.0f);
-    if (hold <= 0.0f) rate = __fadd_rn(rate, __fmul_rn(slope[i], dt));
-  }
-  o_rate[i] = tclip(rate, min_rate, line_rate);
+  float rate = rate_in[i], hold = hold_in[i];
+  cc::erp_flow(p, rate, hold, cnp_in[i] > 0.0f, tgt_rx[i], slope[i]);
+  o_rate[i] = rate;
   o_hold[i] = hold;
 }
 
@@ -222,25 +142,10 @@ __global__ void swift_kernel(const float* __restrict__ par,
   long long i = flat_index();
   if (i >= n) return;
   const float* p = par + (i / F) * par_stride;
-  const float target = p[0], beta = p[1], ai = p[2], guard = p[3];
-  const float min_rate = p[4], line_rate = p[5], dt = p[6];
-  float rate = rate_in[i];
-  const float cool = tmax(__fsub_rn(cool_in[i], dt), 0.0f);
-  const float qd = qdelay[i];
-  const bool over = qd > target;
-  const bool can = cool <= 0.0f;
-  const float factor = __fsub_rn(
-      1.0f, __fdiv_rn(__fmul_rn(beta, __fsub_rn(qd, target)),
-                      tmax(qd, 1e-12f)));
-  const float dec =
-      tmax(__fmul_rn(rate, tmax(factor, __fsub_rn(1.0f, beta))), min_rate);
-  if (over && can) {
-    rate = dec;
-  } else if (!over) {
-    rate = __fadd_rn(rate, __fmul_rn(ai, dt));
-  }
-  o_cool[i] = (over && can) ? guard : cool;
-  o_rate[i] = tclip(rate, min_rate, line_rate);
+  float rate = rate_in[i], cool = cool_in[i];
+  cc::swift_flow(p, rate, cool, qdelay[i]);
+  o_rate[i] = rate;
+  o_cool[i] = cool;
 }
 
 inline unsigned int n_blocks(long long n) {

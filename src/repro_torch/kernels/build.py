@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled for Hopper (``sm_90a``) into ``repro_torch/_build/`` under a
-name keyed on a hash of its source and flags, so an edited source builds
-anew and an unchanged one loads at once.  Nothing is built at import
+name keyed on a hash of its source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header builds anew and an
+unchanged one loads at once.  Nothing is built at import
 time: a machine without ``nvcc`` or a card imports the package freely
 and only the CUDA launch path needs the library.
 """
@@ -50,10 +51,19 @@ def find_nvcc() -> str:
         "kernels of repro_torch are compiled at first use")
 
 
+def sources() -> list[str]:
+    """The port's CUDA sources (``csrc/*.cu``), one library each."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for fn in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(fn.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}_{key[:16]}.so")
 
 

@@ -244,7 +244,8 @@ def test_make_step_fn_needs_a_device_or_a_gpu(monkeypatch):
 
 
 def test_ordered_engines_refuse_cuda_tensors():
-    """Segment sum and scatter have no ordered CUDA form in this slice;
-    they raise on a non-CPU device instead of running unordered."""
+    """The scatter engine has no ordered CUDA form: it raises on a
+    non-CPU device instead of running unordered, and points at the
+    segment_reduce kernel the other engines use there."""
     with pytest.raises(NotImplementedError, match="segment_reduce"):
         fluidP._cpu_only("reduce='scat'", torch.empty(1, device="meta"))

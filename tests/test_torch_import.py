@@ -25,6 +25,7 @@ def _env():
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.net, "
             "repro_torch.convert, repro_torch.kernels.cc_step, "
+            "repro_torch.kernels.fluid_reduce, repro_torch.kernels.fluid_step, "
             "repro_torch.kernels.build, repro_torch.core.experiments; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "

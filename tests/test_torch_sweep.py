@@ -13,9 +13,10 @@ are not bit-for-bit the reference's (XLA fuses multiply-adds the port
 rounds twice, see ``test_torch_fluid``), and a 1-ulp difference can move
 a threshold crossing by a step.
 
-Also here: the options this slice does not port raise
-NotImplementedError, and the entry points refuse to run without a device
-when no GPU is present.
+Also here: the options the port does not have yet raise
+NotImplementedError, the whole-step tier and ``reduce="pallas"`` run,
+and the entry points refuse to run without a device when no GPU is
+present.
 """
 
 import json
@@ -123,8 +124,6 @@ def test_pad_runs_to_and_delay_slots_leave_results_unchanged():
 
 
 @pytest.mark.parametrize("kw, slice_", [
-    (dict(use_kernels="mega"), "megastep"),
-    (dict(reduce="pallas"), "segment_reduce"),
     (dict(temperature=0.1), "temperature"),
     (dict(mesh=object()), "mesh"),
 ])
@@ -133,6 +132,20 @@ def test_unported_options_raise(kw, slice_):
                        scenarios=ScenarioSpec.paper_incast(roll=0))
     with pytest.raises(NotImplementedError, match=slice_):
         sweep.run(n_steps=10, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(use_kernels="mega"),
+                                dict(reduce="pallas")])
+def test_ported_options_run_on_cpu(kw):
+    """The whole-step tier and the segment_reduce engine run (their
+    plain versions on the CPU) and agree with the default path."""
+    sweep = Sweep.grid(configs=SCHEMES,
+                       scenarios=ScenarioSpec.paper_incast(
+                           roll=0, t_start=0.02e-3))
+    a = sweep.run(n_steps=60, trace_every=10, device="cpu")
+    b = sweep.run(n_steps=60, trace_every=10, device="cpu", **kw)
+    for f in a.traces._fields:
+        assert np.array_equal(getattr(a.traces, f), getattr(b.traces, f)), f
 
 
 def test_sweep_without_device_raises_without_gpu(monkeypatch):
