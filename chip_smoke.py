@@ -35,7 +35,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
   8. hotspot — half of 4096 flows into one host of the same dragonfly:
                too skewed for the dense walk, so the segment sum runs on
                the ``segment_reduce`` kernel; with ``reduce="pallas"`` and
-               on the CPU it must agree bitwise.
+               on the CPU it must agree bitwise;
+  9. attention — ``flash_attention`` and ``decode_attention`` against
+               their plain versions (3e-5 float32, 2e-2 bfloat16) at
+               gemma2-27b's serving shapes and at the edge shapes of
+               tests/test_kernels.py; kernel / plain / bound time, and
+               ``scaled_dot_product_attention`` where it computes the same
+               function (softcap 0);
+ 10. serve   — gemma2-27b at full width and depth in bfloat16 (random
+               weights from seed 0 on the card): 8 ragged prompts of
+               4100-4200 tokens on 4 slots, 16 new tokens each, through
+               ``ServingEngine.generate``; exact launch counts (46 a
+               prefill, 46 a decode step), time to first token, prefill
+               and decode tokens/s, peak memory; then at batch 1 the
+               prefill and first decode logits against the plain path;
+ 11. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
+               global) in float32: greedy tokens equal to the plain path;
+ 12. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
+               card and on the CPU: equal tokens; the serving launcher's
+               ``--smoke`` run on the card.
 Kernel launch counts are zeroed just before each path's run and read
 just after; every path asserts each of its kernels' exact count.
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
@@ -60,6 +78,7 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 #: published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 #: steps of the DC-scale run, and of its card-vs-CPU window
 DC_STEPS = 5000
@@ -95,25 +114,36 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (cc_step, decode_attention,
+                                     flash_attention, fluid_reduce,
+                                     fluid_step)
+    return (cc_step, fluid_reduce, fluid_step, flash_attention,
+            decode_attention)
+
+
 def reset_counts() -> None:
-    from repro_torch.kernels import cc_step, fluid_reduce, fluid_step
-    for mod in (cc_step, fluid_reduce, fluid_step):
+    for mod in _kernel_modules():
         mod.reset_launch_counts()
 
 
 def counts() -> dict:
     """Launches of every kernel of the port since ``reset_counts``."""
-    from repro_torch.kernels import cc_step, fluid_reduce, fluid_step
-    return {**cc_step.LAUNCHES, **fluid_reduce.LAUNCHES,
-            **fluid_step.LAUNCHES}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def _expect(launches: dict, where: str, *, cc: int = 0, seg: int = 0,
-            step: int = 0, block: int = 0):
+            step: int = 0, block: int = 0, flash: int = 0,
+            decode: int = 0):
     """Exactly these launches: ``cc`` of each CC kernel, ``seg`` of
-    segment_reduce, ``step`` megastep and ``block`` megastep_block."""
+    segment_reduce, ``step`` megastep, ``block`` megastep_block,
+    ``flash`` flash_attention and ``decode`` decode_attention."""
     want = {**{k: cc for k in KERNELS}, "segment_reduce": seg,
-            "megastep": step, "megastep_block": block}
+            "megastep": step, "megastep_block": block,
+            "flash_attention": flash, "decode_attention": decode}
     assert launches == want, (where, launches, want)
 
 
@@ -923,6 +953,714 @@ def phase_hotspot(device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN = {
+    # name: (source, TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:103"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:71"),
+}
+#: kernel against plain version: atol = rtol (tests/test_kernels.py)
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+#: gemma2-27b's attention: query heads, kv heads, head_dim, the query
+#: scale 1/sqrt(144) and the logit softcap
+GEMMA_HEADS = (32, 16, 128)
+GEMMA_SCALE = 1.0 / 12.0
+GEMMA_CAP = 50.0
+#: the serve cell: requests on slots, prompt lengths (ragged, past the
+#: 4096-token window), new tokens each and the cache length
+SERVE_REQUESTS, SERVE_SLOTS = 8, 4
+SERVE_PROMPT = (4100, 4200)
+SERVE_NEW, SERVE_MAX_LEN = 16, 4352
+#: kernel path against the plain path, gemma2-27b in bfloat16 at batch
+#: 1: max |logit diff| <= SERVE_LOGIT_RTOL * max |plain logit|.  The
+#: logits come out of a bfloat16 product (ulp 2^-8 relative), and the
+#: kernels keep the softmax weights in float32 where the plain version
+#: rounds them to bfloat16 (the 2e-2 kernel bound) in each of 46 layers.
+SERVE_LOGIT_RTOL = 5e-2
+#: the same in float32 (the two-layer cut): the kernels' 3e-5 bound on
+#: each attention output, through 2 layers
+SERVE_F32_LOGIT_RTOL = 1e-4
+
+
+def _held(got, want, dtype: str, where: str) -> float:
+    """max |got - want|; raises unless |got - want| <= tol * (1 + |want|)
+    everywhere (``np.allclose`` with atol = rtol = ATTN_TOL[dtype])."""
+    import torch
+    tol = ATTN_TOL[dtype]
+    d = (got.float() - want.float()).abs()
+    bad = d > tol + tol * want.float().abs()
+    err = float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() \
+        else 0.0
+    if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{where}: kernel differs from its plain "
+                             f"version beyond {tol}: max |diff| = {err}")
+    return err
+
+
+def _flash_flops(q_shape, s: int, *, causal: bool,
+                 window: int | None) -> float:
+    """Multiply-add flops (2 a MAC, QK^T and PV) of the (query position,
+    key) pairs the masks keep, for every head: the work these inputs
+    need, whatever blocks a kernel skips or not."""
+    b, t, h, d = q_shape
+    pairs = 0
+    for qpos in range(t):
+        hi = min(s, qpos + 1) if causal else s
+        lo = max(0, qpos - window + 1) if window is not None else 0
+        pairs += max(hi - lo, 0)
+    return 4.0 * b * h * d * pairs
+
+
+def _randn(g, shape, dtype, device, sd: float = 0.3):
+    import torch
+    return (torch.randn(shape, generator=g, device=device) * sd).to(dtype)
+
+
+#: tests/test_kernels.py:32-40 (b, t, h, kv, d, causal, window, cap),
+#: then gemma2's heads at a prompt's full length (local and global)
+FLASH_EDGE = [
+    (1, 128, 4, 2, 64, True, None, 0.0),
+    (2, 256, 8, 8, 64, True, None, 50.0),          # g = 1
+    (1, 200, 4, 1, 64, True, 64, 0.0),             # ragged + window, g = 4
+    (2, 128, 6, 2, 128, False, None, 0.0),         # non-causal
+    (1, 512, 4, 2, 64, True, 128, 30.0),
+    (1, 96, 2, 2, 32, True, 32, 0.0),
+    (1, 80, 4, 4, 64, True, None, 0.0),            # ragged tail block
+    (1, 4200, 32, 16, 128, True, 4096, GEMMA_CAP),
+    (1, 4200, 32, 16, 128, True, None, GEMMA_CAP),
+]
+#: tests/test_kernels.py:84-88 (b, s, h, kv, d, cap), then gemma2's
+#: decode at the serve cell's cache lengths (global and local ring)
+DECODE_EDGE = [
+    (2, 256, 8, 2, 64, 0.0),
+    (1, 1000, 4, 1, 64, 50.0),
+    (3, 128, 16, 8, 128, 0.0),
+    (1, 64, 4, 4, 32, 0.0),
+    (4, SERVE_MAX_LEN, 32, 16, 128, GEMMA_CAP),
+    (4, 4096, 32, 16, 128, GEMMA_CAP),
+]
+
+
+#: logits that reach the cap: q and k at 2x unit scale (logit std ~4 at
+#: 1/sqrt(64), ~3.8 at gemma2's 1/12 and d = 128), V at unit scale so the
+#: outputs are O(1) against the bounds.  (b, t, h, kv, d, window, cap)
+CAP_QK = 2.0
+FLASH_CAP = [
+    (1, 128, 4, 2, 64, 48, 2.0),
+    (1, 200, 4, 1, 64, 64, 5.0),                   # ragged, g = 4
+    (2, 256, 8, 8, 64, None, 50.0),                # g = 1
+    (1, 4200, 32, 16, 128, 4096, 5.0),
+    (1, 4200, 32, 16, 128, 4096, GEMMA_CAP),
+    (1, 4200, 32, 16, 128, None, GEMMA_CAP),
+]
+#: (b, s, h, kv, d, cap)
+DECODE_CAP = [
+    (1, 1000, 4, 1, 64, 2.0),
+    (2, 300, 8, 4, 64, 5.0),
+    (2, 256, 8, 2, 64, 50.0),
+    (4, SERVE_MAX_LEN, 32, 16, 128, 5.0),
+    (4, SERVE_MAX_LEN, 32, 16, 128, GEMMA_CAP),
+    (4, 4096, 32, 16, 128, GEMMA_CAP),
+]
+
+
+def _beyond(nocap, want, dtype: str, where: str) -> float:
+    """max |nocap - want|; raises unless dropping the softcap moves the
+    output beyond the bound somewhere (so a kernel without it fails)."""
+    tol = ATTN_TOL[dtype]
+    d = (nocap.float() - want.float()).abs()
+    if not bool((d > tol + tol * want.float().abs()).any()):
+        raise AssertionError(f"{where}: the softcap moves the output by "
+                             f"no more than the bound {tol}")
+    return float(d.max())
+
+
+def _cap_cases(device, g) -> dict:
+    """Both kernels where the softcap bites, each against its plain
+    version run in float32 on the same values: the plain bf16 version
+    rounds its logits to bf16, which at |logit| ~ 14 is beyond 2e-2 by
+    itself (the kernels, like the TPU kernels, keep them in float32)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    errs, moved = {"flash": {}, "decode": {}}, {}
+    for b, t, h, kv, d, window, cap in FLASH_CAP:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(g, (b, t, h, d), dt, device, CAP_QK)
+            k = _randn(g, (b, t, kv, d), dt, device, CAP_QK)
+            v = _randn(g, (b, t, kv, d), dt, device, 1.0)
+            kw = dict(window=window, scale=GEMMA_SCALE if h == 32 else None)
+            f32 = [x.float() for x in (q, k, v)]
+            want = FA.flash_attention_plain(*f32, softcap=cap, **kw)
+            tag = f"cap {b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt}"
+            errs["flash"][tag] = _held(
+                FA.flash_attention(q, k, v, softcap=cap, **kw),
+                want, str(dt)[6:], f"flash {tag}")
+            moved[tag] = _beyond(FA.flash_attention_plain(*f32, **kw), want,
+                                 str(dt)[6:], f"flash {tag}")
+            del q, k, v, f32, want
+    for b, s, h, kv, d, cap in DECODE_CAP:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(g, (b, h, d), dt, device, CAP_QK)
+            k = _randn(g, (b, s, kv, d), dt, device, CAP_QK)
+            v = _randn(g, (b, s, kv, d), dt, device, 1.0)
+            valid = torch.rand((b, s), generator=g, device=device) > 0.3
+            kw = dict(scale=GEMMA_SCALE if h == 32 else None)
+            f32 = [x.float() for x in (q, k, v)]
+            want = DA.decode_attention_plain(*f32, valid, softcap=cap, **kw)
+            tag = f"cap {b}x{s}x{h}/{kv}x{d} cap{cap} {dt}"
+            errs["decode"][tag] = _held(
+                DA.decode_attention(q, k, v, valid, softcap=cap, **kw),
+                want, str(dt)[6:], f"decode {tag}")
+            moved[tag] = _beyond(DA.decode_attention_plain(*f32, valid, **kw),
+                                 want, str(dt)[6:], f"decode {tag}")
+    torch.cuda.empty_cache()
+    return errs, moved
+
+
+def _flash_edges(device, g) -> dict:
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    errs = {}
+    for b, t, h, kv, d, causal, window, cap in FLASH_EDGE:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = [_randn(g, sh, dt, device) for sh in
+                       ((b, t, h, d), (b, t, kv, d), (b, t, kv, d))]
+            kw = dict(causal=causal, window=window, softcap=cap,
+                      scale=GEMMA_SCALE if h == 32 else None)
+            tag = f"{b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt}"
+            errs[tag] = _held(FA.flash_attention(q, k, v, **kw),
+                              FA.flash_attention_plain(q, k, v, **kw),
+                              str(dt)[6:], f"flash {tag}")
+    # a q block whose kv blocks are all skipped: t > s under a window, so
+    # positions >= s + window - 1 see no key; the kernel (like the TPU
+    # kernel) returns 0 there, the plain version the mean of V
+    b, t, s, window = 1, 256, 64, 32
+    h, kv, d = GEMMA_HEADS
+    for dt in (torch.float32, torch.bfloat16):
+        q = _randn(g, (b, t, h, d), dt, device)
+        k, v = [_randn(g, (b, s, kv, d), dt, device) for _ in range(2)]
+        got = FA.flash_attention(q, k, v, window=window, softcap=GEMMA_CAP)
+        want = FA.flash_attention_plain(q, k, v, window=window,
+                                        softcap=GEMMA_CAP)
+        seen = s + window - 1
+        tag = f"all_skipped t{t} s{s} w{window} {dt}"
+        errs[tag] = _held(got[:, :seen], want[:, :seen], str(dt)[6:], tag)
+        assert not bool(got[:, seen:].any()), tag
+    return errs
+
+
+def _decode_edges(device, g) -> dict:
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    errs = {}
+    for b, s, h, kv, d, cap in DECODE_EDGE:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(g, (b, h, d), dt, device)
+            k, v = [_randn(g, (b, s, kv, d), dt, device) for _ in range(2)]
+            valid = torch.rand((b, s), generator=g, device=device) > 0.3
+            kw = dict(softcap=cap, scale=GEMMA_SCALE if h == 32 else None)
+            tag = f"{b}x{s}x{h}/{kv}x{d} cap{cap} {dt}"
+            errs[tag] = _held(DA.decode_attention(q, k, v, valid, **kw),
+                              DA.decode_attention_plain(q, k, v, valid, **kw),
+                              str(dt)[6:], f"decode {tag}")
+    # a single valid slot: the output is that slot's V row
+    q = _randn(g, (1, 4, 32), torch.float32, device)
+    k, v = [_randn(g, (1, 64, 2, 32), torch.float32, device)
+            for _ in range(2)]
+    valid = torch.zeros((1, 64), dtype=torch.bool, device=device)
+    valid[0, 17] = True
+    got = DA.decode_attention(q, k, v, valid)
+    errs["single_valid_slot"] = _held(
+        got, v[0, 17].repeat_interleave(2, 0)[None], "float32",
+        "decode single valid slot")
+    return errs
+
+
+def _flex_call(qT, kT, vT, *, window, valid):
+    """One compiled ``flex_attention`` call computing the kernels'
+    function at gemma2's scale and softcap, on [b, heads, len, d]
+    tensors: causal (and the window) for a prefill, the valid slots for
+    a decode query.  Timed here only; the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    b, _, t, _ = qT.shape
+    s = kT.shape[2]
+
+    def softcap(score, bb, hh, qi, ki):
+        return torch.tanh(score / GEMMA_CAP) * GEMMA_CAP
+
+    if valid is not None:
+        def keep(bb, hh, qi, ki):
+            return valid[bb, ki]
+        bm = create_block_mask(keep, b, None, t, s, device=qT.device)
+    elif window is None:
+        def keep(bb, hh, qi, ki):
+            return ki <= qi
+        bm = create_block_mask(keep, None, None, t, s, device=qT.device)
+    else:
+        def keep(bb, hh, qi, ki):
+            return (ki <= qi) & (ki > qi - window)
+        bm = create_block_mask(keep, None, None, t, s, device=qT.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(qT, kT, vT, score_mod=softcap, block_mask=bm,
+                      scale=GEMMA_SCALE, enable_gqa=True)
+
+
+def phase_attention(device) -> dict:
+    """Both kernels against their plain versions at every case; timed at
+    the serve cell's shapes (batch 4, prompt 4200, cache 4352, bf16),
+    with the bound, flex_attention at softcap 50 (the library call of
+    the same function) and, at softcap 0, scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=device).manual_seed(9)
+    flash_errs = _flash_edges(device, g)
+    decode_errs = _decode_edges(device, g)
+    cap_errs, moved = _cap_cases(device, g)
+    flash_errs.update(cap_errs["flash"])
+    decode_errs.update(cap_errs["decode"])
+    h, kv, d = GEMMA_HEADS
+    bf = torch.bfloat16
+    rows, rec = {}, {"phase": "attention", "flash_max_abs_err": flash_errs,
+                     "decode_max_abs_err": decode_errs,
+                     "nocap_max_abs_diff": moved}
+
+    # flash at a prefill of the serve cell: 4 slots x 4200 positions
+    b, t = SERVE_SLOTS, SERVE_PROMPT[1]
+    q = _randn(g, (b, t, h, d), bf, device)
+    k, v = [_randn(g, (b, t, kv, d), bf, device) for _ in range(2)]
+    times = {}
+    for layer, window in (("global", None), ("local", 4096)):
+        kw = dict(window=window, softcap=GEMMA_CAP, scale=GEMMA_SCALE)
+        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
+        plain_ms = _event_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                             1)
+        fl = _flash_flops(q.shape, t, causal=True, window=window)
+        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = fl / BF16_FLOPS * 1e3
+        times[layer] = {"us": ms * 1e3, "plain_us": plain_ms * 1e3,
+                        "bound_us": max(b_ms, o_ms) * 1e3,
+                        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                        "flops": fl, "tflops_per_s": fl / ms / 1e9}
+        torch.cuda.empty_cache()
+    # scaled_dot_product_attention computes the same function at softcap
+    # 0 (boolean mask, GQA): time it beside the kernel at softcap 0
+    qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(t, device=device)
+    local_mask = ((pos[None, :] <= pos[:, None])
+                  & (pos[None, :] > pos[:, None] - 4096))
+    sdpa = {}
+    for layer, window, lib in (
+            ("global", None, lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, is_causal=True, scale=GEMMA_SCALE,
+                enable_gqa=True)),
+            ("local", 4096, lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=local_mask, scale=GEMMA_SCALE,
+                enable_gqa=True))):
+        kw = dict(window=window, scale=GEMMA_SCALE)
+        err = _held(FA.flash_attention(q, k, v, **kw),
+                    lib().transpose(1, 2), "bfloat16", f"sdpa {layer}")
+        sdpa[layer] = {
+            "library_us": _event_ms(lib, 5) * 1e3,
+            "kernel_softcap0_us": _event_ms(
+                lambda: FA.flash_attention(q, k, v, **kw), 3) * 1e3,
+            "max_abs_err_vs_kernel": err}
+    flex = {}
+    for layer, window in (("global", None), ("local", 4096)):
+        lib = _flex_call(qT, kT, vT, window=window, valid=None)
+        err = _held(FA.flash_attention(q, k, v, window=window,
+                                       softcap=GEMMA_CAP, scale=GEMMA_SCALE),
+                    lib().transpose(1, 2), "bfloat16", f"flex {layer}")
+        flex[layer] = {"library_us": _event_ms(lib, 5) * 1e3,
+                       "max_abs_err_vs_kernel": err}
+    rec["flash"] = {"shape": [b, t, h, kv, d], "dtype": "bfloat16",
+                    "softcap": GEMMA_CAP, "times": times,
+                    "flex_softcap50": flex, "sdpa_softcap0": sdpa}
+    del q, k, v, qT, kT, vT, local_mask
+    torch.cuda.empty_cache()
+    rows["flash_attention"] = {
+        "ms": times["global"]["us"] / 1e3,
+        "plain_ms": times["global"]["plain_us"] / 1e3,
+        "bound_ms": times["global"]["bound_us"] / 1e3,
+        "bound_by": times["global"]["bound_by"],
+        "library_ms": flex["global"]["library_us"] / 1e3,
+        "max_abs_err": max(flash_errs.values())}
+
+    # decode at a step of the serve cell: 4 slots, global cache of 4352
+    # slots (4215 valid) and a full local ring of 4096
+    times, sdpa, flex = {}, {}, {}
+    for layer, s, n_valid in (("global", SERVE_MAX_LEN, 4215),
+                              ("local", 4096, 4096)):
+        q = _randn(g, (b, h, d), bf, device)
+        k, v = [_randn(g, (b, s, kv, d), bf, device) for _ in range(2)]
+        valid = (torch.arange(s, device=device) < n_valid).expand(b, s)
+        valid = valid.contiguous()
+        kw = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
+        ms = _event_ms(lambda: DA.decode_attention(q, k, v, valid, **kw), 20)
+        plain_ms = _event_ms(
+            lambda: DA.decode_attention_plain(q, k, v, valid, **kw), 5)
+        # K/V rows of the valid slots only (the kernel loads no other),
+        # q in and out in bf16, the mask
+        nbytes = 2 * (2 * b * n_valid * kv * d + 2 * q.numel()) \
+            + valid.numel()
+        fl = 4.0 * b * h * n_valid * d
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = fl / BF16_FLOPS * 1e3
+        times[layer] = {"us": ms * 1e3, "plain_us": plain_ms * 1e3,
+                        "bound_us": max(b_ms, o_ms) * 1e3,
+                        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                        "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9}
+        qT, kT, vT = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        kT, vT = kT.contiguous(), vT.contiguous()
+        mask = valid[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qT, kT, vT, attn_mask=mask, scale=GEMMA_SCALE, enable_gqa=True)
+        err = _held(DA.decode_attention(q, k, v, valid, scale=GEMMA_SCALE),
+                    lib()[:, :, 0], "bfloat16", f"sdpa decode {layer}")
+        sdpa[layer] = {
+            "library_us": _event_ms(lib, 20) * 1e3,
+            "kernel_softcap0_us": _event_ms(lambda: DA.decode_attention(
+                q, k, v, valid, scale=GEMMA_SCALE), 20) * 1e3,
+            "max_abs_err_vs_kernel": err}
+        lib = _flex_call(qT, kT, vT, window=None, valid=valid)
+        err = _held(DA.decode_attention(q, k, v, valid, **kw),
+                    lib()[:, :, 0], "bfloat16", f"flex decode {layer}")
+        flex[layer] = {"library_us": _event_ms(lib, 20) * 1e3,
+                       "max_abs_err_vs_kernel": err}
+    rec["decode"] = {"shape": [b, SERVE_MAX_LEN, h, kv, d],
+                     "dtype": "bfloat16", "softcap": GEMMA_CAP,
+                     "times": times, "flex_softcap50": flex,
+                     "sdpa_softcap0": sdpa}
+    rows["decode_attention"] = {
+        "ms": times["global"]["us"] / 1e3,
+        "plain_ms": times["global"]["plain_us"] / 1e3,
+        "bound_ms": times["global"]["bound_us"] / 1e3,
+        "bound_by": times["global"]["bound_by"],
+        "library_ms": flex["global"]["library_us"] / 1e3,
+        "max_abs_err": max(decode_errs.values())}
+    emit(rec)
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        row.update({"name": name, "route": "cuda", "source": ATTN[name][0],
+                    "replaces": ATTN[name][1], "launches": None})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: serving gemma2-27b
+# ---------------------------------------------------------------------------
+
+def _prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [[int(x) for x in rng.randint(2, vocab, int(rng.randint(lo,
+                                                                   hi + 1)))]
+            for _ in range(n)]
+
+
+def _timed(eng) -> dict:
+    """Wrap ``eng``'s prefill and step calls to record (seconds, grid
+    tokens, end time) of each, synchronised with the card."""
+    import torch
+    rec = {"prefill": [], "decode": []}
+
+    def wrap(fn, key):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec[key].append((t1 - t0, int(a[0].size), t1))
+            return out
+        return call
+
+    eng._prefill = wrap(eng._prefill, "prefill")
+    eng._step = wrap(eng._step, "decode")
+    return rec
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _kernel_vs_plain(params, cfg, prompt, device) -> dict:
+    """Prefill and first decode logits at batch 1 through the kernels
+    and through the plain path (the same params with ``use_pallas``
+    off): their differences."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    tok = torch.tensor([prompt], dtype=torch.int32, device=device)
+    t, n_layers = tok.shape[1], cfg.n_layers
+    with torch.no_grad():
+        reset_counts()
+        lk, ck = T.prefill(params, cfg, tok, SERVE_MAX_LEN)
+        nxt = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        dk, _ = T.decode_step(params, cfg, nxt, ck, t)
+        del ck
+        _expect(counts(), "batch 1", flash=n_layers, decode=n_layers)
+        lr, cr = T.prefill(params, plain, tok, SERVE_MAX_LEN)
+        dr, _ = T.decode_step(params, plain, nxt, cr, t)
+        del cr
+        _expect(counts(), "batch 1 plain", flash=n_layers, decode=n_layers)
+    cmp = {}
+    for tag, a, b in (("prefill", lk, lr), ("decode", dk, dr)):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        cmp[tag] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                    "rel": diff / scale,
+                    "mean_abs_diff": float((a - b).abs().mean()),
+                    "argmax_equal": bool(torch.equal(a.argmax(-1),
+                                                     b.argmax(-1))),
+                    "finite": bool(torch.isfinite(a).all())}
+    return cmp
+
+
+def _profile_decode(cfg, params, prompts, device, decode_us: float,
+                    n: int = 5) -> dict:
+    """``n`` of the engine's decode steps on the serve cell's 4 slots
+    (prompts cut to the shortest length), each followed by the engine's
+    host-side read of the logits: wall ms a step without and with
+    torch.profiler, device busy ms a step (sum of kernel and copy
+    durations on the one stream), the idle share against both walls,
+    and the heaviest kernels.  Should the trace hold no
+    ``decode_attention`` kernel (a ctypes launch the profiler missed),
+    busy time adds its launches at ``decode_us`` each, and says so."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(
+        batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_token=-1),
+        device=device)
+    t = SERVE_PROMPT[0]
+    grid = np.asarray([p[:t] for p in prompts[:SERVE_SLOTS]], np.int32)
+    logits, caches = eng._prefill(grid)
+    pos = t
+
+    def steps(k):
+        nonlocal logits, caches, pos
+        for _ in range(k):
+            cur = logits[:, -1].float().cpu().numpy().argmax(-1)
+            logits, caches = eng._step(cur.astype(np.int32), caches, pos)
+            pos += 1
+        logits[:, -1].float().cpu()
+
+    steps(2)
+    t0 = time.perf_counter()
+    steps(n)
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(n)
+        pwall = (time.perf_counter() - t0) / n
+    del eng, logits, caches
+    torch.cuda.empty_cache()
+    rec = {"profiled_steps": n, "wall_ms_per_step": wall * 1e3,
+           "profiled_wall_ms_per_step": pwall * 1e3}
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        rec["device"] = "not measured (the profiler saw no device events)"
+        return rec
+    per = {}
+    for e in dev:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(per.values()) / n / 1e6
+    seen = sum(us for name, us in per.items() if "decode_" in name) / n
+    rec["decode_attention_us_per_step_in_trace"] = seen
+    if not seen:
+        busy += cfg.n_layers * decode_us / 1e6
+        rec["busy_adds_decode_attention_from_phase_attention_us"] = \
+            cfg.n_layers * decode_us
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    rec.update({
+        "device_busy_ms_per_step": busy * 1e3,
+        "device_idle_share": 1.0 - busy / wall,
+        "device_idle_share_profiled": 1.0 - busy / pwall,
+        "device_ops_per_step": len(dev) / n,
+        "top_device_us_per_step": [[k[:80], v / n] for k, v in top]})
+    return rec
+
+
+def phase_serve(device, decode_us: float) -> dict:
+    """gemma2-27b, full width and depth, bf16, through the engine;
+    ``decode_us`` is phase_attention's time of one decode launch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_config("gemma2-27b"), use_pallas=True)
+    n_layers = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(T.param_defs(cfg), 0, getattr(torch, cfg.dtype),
+                         device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = T.n_params(params) * 2
+    eng = ServingEngine(cfg, params, ServeConfig(
+        batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_token=-1),
+        device=device)
+    prompts = _prompts(cfg.vocab, SERVE_REQUESTS, *SERVE_PROMPT, seed=0)
+    calls = _timed(eng)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
+    prefill_s = sum(c[0] for c in calls["prefill"])
+    decode_s = sum(c[0] for c in calls["decode"])
+    prompt_tokens = sum(len(p) for p in prompts)
+    rec = {"phase": "serve", "model": cfg.name, "layers": n_layers,
+           "params": T.n_params(params), "param_bytes": param_bytes,
+           "dtype": cfg.dtype, "init_s": init_s, "requests": len(prompts),
+           "slots": SERVE_SLOTS, "prompt_tokens": prompt_tokens,
+           "prompt_lengths": [len(p) for p in prompts],
+           "new_tokens": SERVE_NEW, "max_len": SERVE_MAX_LEN,
+           "stats": st, "wall_s": wall,
+           "ttft_s": calls["prefill"][0][2] - t0,
+           "prefill_s": [c[0] for c in calls["prefill"]],
+           "prefill_tokens_per_s": prompt_tokens / prefill_s,
+           "prefill_grid_tokens_per_s":
+               sum(c[1] for c in calls["prefill"]) / prefill_s,
+           "decode_step_ms": decode_s / max(n_decode, 1) * 1e3,
+           "decode_tokens_per_s": SERVE_SLOTS * n_decode / decode_s,
+           "generated_tokens": sum(len(o) for o in outs),
+           "max_memory_allocated": peak, "launches": launches}
+    assert st == {"prefills": 2, "refills": 0, "decode_steps": 30}, st
+    assert all(len(o) == SERVE_NEW for o in outs), [len(o) for o in outs]
+    _expect(launches, "serve", flash=n_layers * n_prefill,
+            decode=n_layers * n_decode)
+    del eng
+    torch.cuda.empty_cache()
+
+    rec["decode_profile"] = _profile_decode(cfg, params, prompts, device,
+                                            decode_us)
+    # the kernel path against the plain path (use_pallas off) at batch 1:
+    # the prefill logits and the first decode step's
+    cmp = _kernel_vs_plain(params, cfg, prompts[0], device)
+    rec["kernel_vs_plain_batch1"] = cmp
+    rec["logit_rtol"] = SERVE_LOGIT_RTOL
+    emit(rec)
+    for tag, c in cmp.items():
+        assert c["finite"] and c["rel"] <= SERVE_LOGIT_RTOL, (tag, c)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_f32(device) -> dict:
+    """gemma2-27b at full width cut to 2 layers (local, global) in
+    float32: greedy tokens of the kernel path = the plain path's."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_config("gemma2-27b"), n_layers=2,
+                              dtype="float32", use_pallas=True)
+    assert T.layer_kinds(cfg) == ["local", "attn"]
+    params = init_params(T.param_defs(cfg), 0, torch.float32, device=device)
+    sv = ServeConfig(batch_slots=2, max_len=SERVE_MAX_LEN, eos_token=-1)
+    prompts = _prompts(cfg.vocab, 4, *SERVE_PROMPT, seed=1)
+    outs, launches = {}, {}
+    for path, c in (("kernels", cfg),
+                    ("plain", dataclasses.replace(cfg, use_pallas=False))):
+        eng = ServingEngine(c, params, sv, device=device)
+        calls = _timed(eng)
+        reset_counts()
+        outs[path] = eng.generate(prompts, max_new_tokens=8)
+        launches[path] = counts()
+        n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
+        del eng
+        torch.cuda.empty_cache()
+    cmp = _kernel_vs_plain(params, cfg, prompts[0], device)
+    rec = {"phase": "serve_f32", "layers": cfg.n_layers, "requests": 4,
+           "slots": 2, "new_tokens": 8, "tokens_equal":
+           outs["kernels"] == outs["plain"], "tokens": outs["kernels"],
+           "launches": launches, "kernel_vs_plain_batch1": cmp,
+           "logit_rtol": SERVE_F32_LOGIT_RTOL}
+    emit(rec)
+    for tag, c in cmp.items():
+        assert c["finite"] and c["rel"] <= SERVE_F32_LOGIT_RTOL, (tag, c)
+    _expect(launches["kernels"], "serve_f32", flash=2 * n_prefill,
+            decode=2 * n_decode)
+    _expect(launches["plain"], "serve_f32 plain")
+    assert rec["tokens_equal"], (outs["kernels"], outs["plain"])
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_card_vs_cpu(device) -> dict:
+    """The gemma2 smoke config serves the same prompts on the card and
+    on the CPU (the same float32 weights, made on the CPU): equal tokens,
+    with EOS live so slots are refilled; then the launcher's --smoke run
+    on the card."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_smoke_config("gemma2-27b"),
+                              use_pallas=True)
+    host = init_params(T.param_defs(cfg), 0, device="cpu")
+    card = _to(host, device)
+    prompts = _prompts(cfg.vocab, 6, 18, 40, seed=2)
+    probe = ServingEngine(cfg, host, ServeConfig(
+        batch_slots=3, max_len=128, eos_token=-1), device="cpu")
+    eos = probe.generate(prompts, max_new_tokens=3)[0][2]
+    sv = ServeConfig(batch_slots=3, max_len=128, eos_token=eos)
+    cpu_eng = ServingEngine(cfg, host, sv, device="cpu")
+    cpu_out = cpu_eng.generate(prompts, max_new_tokens=10)
+    eng = ServingEngine(cfg, card, sv, device=device)
+    calls = _timed(eng)
+    reset_counts()
+    card_out = eng.generate(prompts, max_new_tokens=10)
+    launches = counts()
+    reset_counts()
+    launcher.main(["--arch", "gemma2-27b", "--smoke"])
+    launcher_launches = counts()
+    rec = {"phase": "card_vs_cpu", "config": "gemma2-27b smoke",
+           "tokens_equal": card_out == cpu_out, "stats": eng.stats,
+           "cpu_stats": cpu_eng.stats, "launches": launches,
+           "launcher_launches": launcher_launches}
+    emit(rec)
+    assert rec["tokens_equal"], (card_out, cpu_out)
+    assert eng.stats == cpu_eng.stats and eng.stats["refills"] >= 1, rec
+    _expect(launches, "card_vs_cpu", flash=cfg.n_layers * len(
+        calls["prefill"]), decode=cfg.n_layers * len(calls["decode"]))
+    assert launcher_launches["flash_attention"] > 0 and \
+        launcher_launches["decode_attention"] > 0, launcher_launches
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -935,6 +1673,9 @@ def main() -> int:
     sys.path.insert(0, SRC)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # float32 products in full float32 (the port's parity contract)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -951,7 +1692,15 @@ def main() -> int:
     _, mstep, mblock = phase_mega(device, dc)
     hot = phase_hotspot(device)
     seg["launches"] = hot["segment_sum"]["launches"]["segment_reduce"]
-    rows = list(kern.values()) + [seg, mstep, mblock]
+    attn = phase_attention(device)
+    serve = phase_serve(device, attn["decode_attention"]["ms"] * 1e3)
+    for name, row in attn.items():
+        row["launches"] = serve["launches"][name]
+    phase_serve_f32(device)
+    phase_card_vs_cpu(device)
+    rows = list(kern.values()) + [seg, mstep, mblock,
+                                  attn["flash_attention"],
+                                  attn["decode_attention"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

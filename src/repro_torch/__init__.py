@@ -5,9 +5,13 @@ The port mirrors the reference package's layout module for module
 imports nothing of it, nor JAX.  Entry points (``Sweep.run``,
 ``simulator.run``) run on the card unless the caller passes
 ``device="cpu"``; the per-flow CC stages launch the hand-written CUDA
-kernels of ``repro_torch.kernels.cc_step`` there.
+kernels of ``repro_torch.kernels.cc_step`` there.  The decoder-only
+transformers serve through ``repro_torch.serve.ServingEngine``
+(``configs``, ``models``, ``launch.serve``), with attention in the CUDA
+kernels of ``kernels.flash_attention`` / ``kernels.decode_attention``.
 
     from repro_torch.core import ScenarioSpec, Sweep, CCScheme, PAPER_CONFIG
 """
 
-__all__ = ["core", "net", "kernels", "convert"]
+__all__ = ["core", "net", "kernels", "convert", "configs", "models",
+           "serve", "launch"]

@@ -1,18 +1,77 @@
-"""Plain-torch oracles for the per-flow CC kernels (port of the CC half
-of ``repro.kernels.ref``).
+"""Plain-torch oracles for the port's kernels (port of
+``repro.kernels.ref``).
 
-Each function is the straight-line definition of one dt of a reaction
-point, elementwise over flows.  Parameters may be python floats or
-tensors that broadcast against the ``[..., F]`` state (a Sweep passes
-``[R, 1]`` columns, one value per run).  The attention oracles of the
-reference module belong to the model substrate and are not ported yet.
+The CC functions are the straight-line definition of one dt of a
+reaction point, elementwise over flows.  Parameters may be python floats
+or tensors that broadcast against the ``[..., F]`` state (a Sweep passes
+``[R, 1]`` columns, one value per run).  The attention functions are the
+untiled definitions of ``flash_attention`` and ``decode_attention``,
+including the reference's cast of the softmax weights to q's dtype
+before the PV product.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# flash attention (train/prefill): causal / sliding-window / softcap
+# ---------------------------------------------------------------------------
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  softcap: float = 0.0, scale: float | None = None):
+    """q: [b, t, h, d]; k, v: [b, s, kv, d] (GQA) -> [b, t, h, d]."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, t, kv, h // kv, d)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k).float()
+    logits = logits * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", w, v)
+    return out.reshape(b, t, h, d)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: single query vs (possibly masked) KV cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0,
+                         scale: float | None = None):
+    """q: [b, h, d]; k, v: [b, s, kv, d]; valid: [b, s] bool -> [b, h, d]."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kv, h // kv, d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k).float()
+    logits = logits * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v)
+    return out.reshape(b, h, d)
+
+
+# ---------------------------------------------------------------------------
+# cc_step: the paper's reaction-point update at DC scale
+# ---------------------------------------------------------------------------
 
 
 class RPState(NamedTuple):

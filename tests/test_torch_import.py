@@ -26,13 +26,37 @@ def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.net, "
             "repro_torch.convert, repro_torch.kernels.cc_step, "
             "repro_torch.kernels.fluid_reduce, repro_torch.kernels.fluid_step, "
-            "repro_torch.kernels.build, repro_torch.core.experiments; "
+            "repro_torch.kernels.build, repro_torch.core.experiments, "
+            "repro_torch.models, repro_torch.configs, repro_torch.serve, "
+            "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, repro_torch.kernels.ops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); assert not bad")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_serving_needs_a_gpu_or_the_cpu_by_request(monkeypatch):
+    """``init_params`` and ``ServingEngine`` run on the card by default
+    and raise without one; ``device="cpu"`` runs them on the CPU."""
+    import torch
+    from repro_torch.models import ModelConfig, transformer
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(name="tiny", n_layers=1, d_model=16, n_heads=2,
+                      n_kv_heads=1, head_dim=8, d_ff=32, vocab=32)
+    defs = transformer.param_defs(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(defs, 0)
+    params = init_params(defs, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, ServeConfig())
+    eng = ServingEngine(cfg, params, ServeConfig(batch_slots=1, max_len=8),
+                        device="cpu")
+    assert len(eng.generate([[2, 3]], max_new_tokens=2)[0]) >= 1
 
 
 def test_no_port_file_imports_jax_or_reference():
