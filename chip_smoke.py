@@ -36,26 +36,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
                too skewed for the dense walk, so the segment sum runs on
                the ``segment_reduce`` kernel; with ``reduce="pallas"`` and
                on the CPU it must agree bitwise;
-  9. attention — ``flash_attention`` and ``decode_attention`` against
-               their plain versions (3e-5 float32, 2e-2 bfloat16) at
-               gemma2-27b's serving shapes and at the edge shapes of
-               tests/test_kernels.py; kernel / plain / bound time, and
-               ``scaled_dot_product_attention`` where it computes the same
-               function (softcap 0);
+  9. attention — ``flash_attention`` (both routes: the tensor-core
+               kernel for bf16 at d 64/128, the CUDA-core kernel for
+               float32 and other widths; each call asserts its route) and
+               ``decode_attention`` against their plain versions (3e-5
+               float32, 2e-2 bfloat16) at gemma2-27b's serving shapes, at
+               the edge shapes of tests/test_kernels.py, where every kv
+               tile is skipped and where the softcap bites; kernel /
+               plain / bound time (with the SFU term beside the tensor
+               bound), flex_attention at softcap 50 and
+               ``scaled_dot_product_attention`` at softcap 0; the
+               CUDA-core route timed at serve_f32's float32 prefill;
  10. serve   — gemma2-27b at full width and depth in bfloat16 (random
                weights from seed 0 on the card): 8 ragged prompts of
                4100-4200 tokens on 4 slots, 16 new tokens each, through
                ``ServingEngine.generate``; exact launch counts (46 a
-               prefill, 46 a decode step), time to first token, prefill
-               and decode tokens/s, peak memory; then at batch 1 the
-               prefill and first decode logits against the plain path;
+               prefill, all on the tensor-core route, 46 a decode step),
+               time to first token, prefill and decode tokens/s, peak
+               memory; one prefill call and 5 decode steps profiled (busy
+               ms, idle share); then at batch 1 the prefill and first
+               decode logits against the plain path;
  11. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
-               global) in float32: greedy tokens equal to the plain path;
+               global) in float32: greedy tokens equal to the plain path,
+               every flash launch on the CUDA-core route;
  12. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
-               card and on the CPU: equal tokens; the serving launcher's
-               ``--smoke`` run on the card.
+               card and on the CPU: equal tokens (CUDA-core route); the
+               serving launcher's ``--smoke`` run on the card.
 Kernel launch counts are zeroed just before each path's run and read
-just after; every path asserts each of its kernels' exact count.
+just after; every path asserts each of its kernels' exact count, and
+flash_attention's exact count on each route.
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -79,6 +88,8 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: special-function (ex2, tanh) results a clock per SM on Hopper
+SFU_PER_CLOCK = 16
 
 #: steps of the DC-scale run, and of its card-vs-CPU window
 DC_STEPS = 5000
@@ -147,17 +158,41 @@ def _expect(launches: dict, where: str, *, cc: int = 0, seg: int = 0,
     assert launches == want, (where, launches, want)
 
 
+def routes() -> dict:
+    """flash_attention's launches by route since ``reset_counts``."""
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.ROUTES)
+
+
+def _expect_routes(got: dict, where: str, *, tensor_core: int = 0,
+                   cuda_core: int = 0):
+    """Exactly these flash_attention launches on each route."""
+    want = {"tensor_core": tensor_core, "cuda_core": cuda_core}
+    assert got == want, (where, got, want)
+
+
+def _flash(q, k, v, **kw):
+    """One ``flash_attention`` call, asserting it took the route
+    ``_route`` names for q's dtype and head_dim (one launch there)."""
+    from repro_torch.kernels import flash_attention as FA
+    before = dict(FA.ROUTES)
+    out = FA.flash_attention(q, k, v, **kw)
+    route = FA._route(q.dtype, q.shape[-1])
+    moved = {r: n - before[r] for r, n in FA.ROUTES.items() if n != before[r]}
+    assert moved == {route: 1}, (tuple(q.shape), q.dtype, moved, route)
+    return out
+
+
 def _launches_once_a_step(launches: dict, n_steps: int, where: str):
     """Each CC kernel of the flow path launched exactly once a step (the
     dense walk sums the queues: no segment_reduce, no megakernel)."""
     _expect(launches, where, cc=n_steps)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -958,9 +993,13 @@ def phase_hotspot(device) -> dict:
 # ---------------------------------------------------------------------------
 
 ATTN = {
-    # name: (source, TPU kernel it replaces)
+    # name: (source, TPU kernel it replaces); flash_attention is the
+    # tensor-core route (bf16 at d 64/128, the serve cell),
+    # flash_attention_cuda_core the route float32 takes (serve_f32)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:103"),
+    "flash_attention_cuda_core": ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:103"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:71"),
 }
@@ -979,8 +1018,9 @@ SERVE_NEW, SERVE_MAX_LEN = 16, 4352
 #: kernel path against the plain path, gemma2-27b in bfloat16 at batch
 #: 1: max |logit diff| <= SERVE_LOGIT_RTOL * max |plain logit|.  The
 #: logits come out of a bfloat16 product (ulp 2^-8 relative), and the
-#: kernels keep the softmax weights in float32 where the plain version
-#: rounds them to bfloat16 (the 2e-2 kernel bound) in each of 46 layers.
+#: kernels sum in another order, with their own exp / tanh and, in
+#: decode, float32 softmax weights (the 2e-2 kernel bound), in each of
+#: 46 layers.
 SERVE_LOGIT_RTOL = 5e-2
 #: the same in float32 (the two-layer cut): the kernels' 3e-5 bound on
 #: each attention output, through 2 layers
@@ -1097,9 +1137,10 @@ def _cap_cases(device, g) -> dict:
             kw = dict(window=window, scale=GEMMA_SCALE if h == 32 else None)
             f32 = [x.float() for x in (q, k, v)]
             want = FA.flash_attention_plain(*f32, softcap=cap, **kw)
-            tag = f"cap {b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt}"
+            tag = (f"cap {b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt} "
+                   f"{FA._route(dt, d)}")
             errs["flash"][tag] = _held(
-                FA.flash_attention(q, k, v, softcap=cap, **kw),
+                _flash(q, k, v, softcap=cap, **kw),
                 want, str(dt)[6:], f"flash {tag}")
             moved[tag] = _beyond(FA.flash_attention_plain(*f32, **kw), want,
                                  str(dt)[6:], f"flash {tag}")
@@ -1133,8 +1174,9 @@ def _flash_edges(device, g) -> dict:
                        ((b, t, h, d), (b, t, kv, d), (b, t, kv, d))]
             kw = dict(causal=causal, window=window, softcap=cap,
                       scale=GEMMA_SCALE if h == 32 else None)
-            tag = f"{b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt}"
-            errs[tag] = _held(FA.flash_attention(q, k, v, **kw),
+            tag = (f"{b}x{t}x{h}/{kv}x{d} w{window} cap{cap} {dt} "
+                   f"{FA._route(dt, d)}")
+            errs[tag] = _held(_flash(q, k, v, **kw),
                               FA.flash_attention_plain(q, k, v, **kw),
                               str(dt)[6:], f"flash {tag}")
     # a q block whose kv blocks are all skipped: t > s under a window, so
@@ -1145,11 +1187,11 @@ def _flash_edges(device, g) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         q = _randn(g, (b, t, h, d), dt, device)
         k, v = [_randn(g, (b, s, kv, d), dt, device) for _ in range(2)]
-        got = FA.flash_attention(q, k, v, window=window, softcap=GEMMA_CAP)
+        got = _flash(q, k, v, window=window, softcap=GEMMA_CAP)
         want = FA.flash_attention_plain(q, k, v, window=window,
                                         softcap=GEMMA_CAP)
         seen = s + window - 1
-        tag = f"all_skipped t{t} s{s} w{window} {dt}"
+        tag = f"all_skipped t{t} s{s} w{window} {dt} {FA._route(dt, d)}"
         errs[tag] = _held(got[:, :seen], want[:, :seen], str(dt)[6:], tag)
         assert not bool(got[:, seen:].any()), tag
     return errs
@@ -1213,6 +1255,40 @@ def _flex_call(qT, kT, vT, *, window, valid):
                       scale=GEMMA_SCALE, enable_gqa=True)
 
 
+def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
+    """The CUDA-core route at serve_f32's prefill (2 slots x 4200
+    positions, gemma2's heads, float32, global layer, softcap 50): kernel,
+    plain and flex_attention time, and the float32 bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    h, kv, d = GEMMA_HEADS
+    b, t = 2, SERVE_PROMPT[1]
+    q = _randn(g, (b, t, h, d), torch.float32, device)
+    k, v = [_randn(g, (b, t, kv, d), torch.float32, device)
+            for _ in range(2)]
+    kw = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
+    _flash(q, k, v, **kw)                                  # the route
+    ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
+    plain_ms = _event_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
+    qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = _flex_call(qT, kT, vT, window=None, valid=None)
+    err = _held(_flash(q, k, v, **kw), lib().transpose(1, 2), "float32",
+                "flex float32 global")
+    lib_ms = _event_ms(lib, 5)
+    fl = _flash_flops(q.shape, t, causal=True, window=None)
+    nbytes = 4 * (q.numel() * 2 + k.numel() + v.numel())
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = fl / FP32_FLOPS * 1e3
+    del q, k, v, qT, kT, vT
+    torch.cuda.empty_cache()
+    cc_errs = [e for tag, e in flash_errs.items() if "cuda_core" in tag]
+    return {"shape": [b, t, h, kv, d], "dtype": "float32",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": lib_ms, "flex_max_abs_err": err,
+            "tflops_per_s": fl / ms / 1e9, "max_abs_err": max(cc_errs)}
+
+
 def phase_attention(device) -> dict:
     """Both kernels against their plain versions at every case; timed at
     the serve cell's shapes (batch 4, prompt 4200, cache 4352, bf16),
@@ -1234,23 +1310,33 @@ def phase_attention(device) -> dict:
                      "decode_max_abs_err": decode_errs,
                      "nocap_max_abs_diff": moved}
 
-    # flash at a prefill of the serve cell: 4 slots x 4200 positions
+    # flash at a prefill of the serve cell: 4 slots x 4200 positions, on
+    # the tensor-core route (bf16, d = 128).  Its bound is the larger of
+    # bytes and tensor-core operations; beside it, the SFU term: one ex2
+    # and one tanh per visible logit at SFU_PER_CLOCK a clock per SM
     b, t = SERVE_SLOTS, SERVE_PROMPT[1]
     q = _randn(g, (b, t, h, d), bf, device)
     k, v = [_randn(g, (b, t, kv, d), bf, device) for _ in range(2)]
+    _flash(q, k, v, softcap=GEMMA_CAP, scale=GEMMA_SCALE)   # the route
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     times = {}
     for layer, window in (("global", None), ("local", 4096)):
         kw = dict(window=window, softcap=GEMMA_CAP, scale=GEMMA_SCALE)
-        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
+        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)
         plain_ms = _event_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
                              1)
         fl = _flash_flops(q.shape, t, causal=True, window=window)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = fl / BF16_FLOPS * 1e3
+        trans = 2 * fl / (4 * d)          # visible logits x (ex2 + tanh)
+        sfu_ms = trans / (SFU_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
         times[layer] = {"us": ms * 1e3, "plain_us": plain_ms * 1e3,
                         "bound_us": max(b_ms, o_ms) * 1e3,
                         "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                        "bound_share": max(b_ms, o_ms) / ms,
+                        "sfu_us": sfu_ms * 1e3, "transcendentals": trans,
                         "flops": fl, "tflops_per_s": fl / ms / 1e9}
         torch.cuda.empty_cache()
     # scaled_dot_product_attention computes the same function at softcap
@@ -1268,34 +1354,39 @@ def phase_attention(device) -> dict:
                 qT, kT, vT, attn_mask=local_mask, scale=GEMMA_SCALE,
                 enable_gqa=True))):
         kw = dict(window=window, scale=GEMMA_SCALE)
-        err = _held(FA.flash_attention(q, k, v, **kw),
+        err = _held(_flash(q, k, v, **kw),
                     lib().transpose(1, 2), "bfloat16", f"sdpa {layer}")
         sdpa[layer] = {
             "library_us": _event_ms(lib, 5) * 1e3,
             "kernel_softcap0_us": _event_ms(
-                lambda: FA.flash_attention(q, k, v, **kw), 3) * 1e3,
+                lambda: FA.flash_attention(q, k, v, **kw), 10) * 1e3,
             "max_abs_err_vs_kernel": err}
     flex = {}
     for layer, window in (("global", None), ("local", 4096)):
         lib = _flex_call(qT, kT, vT, window=window, valid=None)
-        err = _held(FA.flash_attention(q, k, v, window=window,
-                                       softcap=GEMMA_CAP, scale=GEMMA_SCALE),
+        err = _held(_flash(q, k, v, window=window, softcap=GEMMA_CAP,
+                           scale=GEMMA_SCALE),
                     lib().transpose(1, 2), "bfloat16", f"flex {layer}")
         flex[layer] = {"library_us": _event_ms(lib, 5) * 1e3,
                        "max_abs_err_vs_kernel": err}
+        flex[layer]["kernel_faster"] = \
+            times[layer]["us"] <= flex[layer]["library_us"]
     rec["flash"] = {"shape": [b, t, h, kv, d], "dtype": "bfloat16",
-                    "softcap": GEMMA_CAP, "times": times,
+                    "route": "tensor_core", "softcap": GEMMA_CAP,
+                    "sm_clock_mhz": clock_mhz, "sms": sms, "times": times,
                     "flex_softcap50": flex, "sdpa_softcap0": sdpa}
     del q, k, v, qT, kT, vT, local_mask
     torch.cuda.empty_cache()
+    tc_errs = [e for tag, e in flash_errs.items() if "tensor_core" in tag]
     rows["flash_attention"] = {
         "ms": times["global"]["us"] / 1e3,
         "plain_ms": times["global"]["plain_us"] / 1e3,
         "bound_ms": times["global"]["bound_us"] / 1e3,
         "bound_by": times["global"]["bound_by"],
         "library_ms": flex["global"]["library_us"] / 1e3,
-        "max_abs_err": max(flash_errs.values())}
-
+        "max_abs_err": max(tc_errs)}
+    rec["flash_cuda_core"] = rows["flash_attention_cuda_core"] = \
+        _flash_cuda_core(device, g, flash_errs)
     # decode at a step of the serve cell: 4 slots, global cache of 4352
     # slots (4215 valid) and a full local ring of 4096
     times, sdpa, flex = {}, {}, {}
@@ -1397,10 +1488,10 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _kernel_vs_plain(params, cfg, prompt, device) -> dict:
+def _kernel_vs_plain(params, cfg, prompt, device, route: str) -> dict:
     """Prefill and first decode logits at batch 1 through the kernels
     and through the plain path (the same params with ``use_pallas``
-    off): their differences."""
+    off): their differences.  Every flash launch takes ``route``."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
@@ -1414,10 +1505,12 @@ def _kernel_vs_plain(params, cfg, prompt, device) -> dict:
         dk, _ = T.decode_step(params, cfg, nxt, ck, t)
         del ck
         _expect(counts(), "batch 1", flash=n_layers, decode=n_layers)
+        _expect_routes(routes(), "batch 1", **{route: n_layers})
         lr, cr = T.prefill(params, plain, tok, SERVE_MAX_LEN)
         dr, _ = T.decode_step(params, plain, nxt, cr, t)
         del cr
         _expect(counts(), "batch 1 plain", flash=n_layers, decode=n_layers)
+        _expect_routes(routes(), "batch 1 plain", **{route: n_layers})
     cmp = {}
     for tag, a, b in (("prefill", lk, lr), ("decode", dk, dr)):
         diff = float((a - b).abs().max())
@@ -1429,6 +1522,18 @@ def _kernel_vs_plain(params, cfg, prompt, device) -> dict:
                                                      b.argmax(-1))),
                     "finite": bool(torch.isfinite(a).all())}
     return cmp
+
+
+def _device_us(prof) -> tuple[dict, int]:
+    """Device microseconds by kernel name in a torch.profiler trace (sum
+    of kernel and copy durations on the one stream), and the number of
+    device events."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per = {}
+    for e in dev:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return per, len(dev)
 
 
 def _profile_decode(cfg, params, prompts, device, decode_us: float,
@@ -1443,7 +1548,6 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
     busy time adds its launches at ``decode_us`` each, and says so."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ServeConfig, ServingEngine
     eng = ServingEngine(cfg, params, ServeConfig(
@@ -1475,13 +1579,10 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
     torch.cuda.empty_cache()
     rec = {"profiled_steps": n, "wall_ms_per_step": wall * 1e3,
            "profiled_wall_ms_per_step": pwall * 1e3}
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
+    per, n_ops = _device_us(prof)
+    if not per:
         rec["device"] = "not measured (the profiler saw no device events)"
         return rec
-    per = {}
-    for e in dev:
-        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(per.values()) / n / 1e6
     seen = sum(us for name, us in per.items() if "decode_" in name) / n
     rec["decode_attention_us_per_step_in_trace"] = seen
@@ -1494,8 +1595,57 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
         "device_busy_ms_per_step": busy * 1e3,
         "device_idle_share": 1.0 - busy / wall,
         "device_idle_share_profiled": 1.0 - busy / pwall,
-        "device_ops_per_step": len(dev) / n,
+        "device_ops_per_step": n_ops / n,
         "top_device_us_per_step": [[k[:80], v / n] for k, v in top]})
+    return rec
+
+
+def _profile_prefill(cfg, params, prompts, device) -> dict:
+    """One prefill call of the serve cell (its 4 slots, prompts cut to
+    the shortest length) under torch.profiler, after an unprofiled one:
+    wall ms, device busy ms (sum of kernel and copy durations on the one
+    stream), the idle share, flash_attention's share of busy time and
+    the heaviest kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(
+        batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, eos_token=-1),
+        device=device)
+    t = SERVE_PROMPT[0]
+    grid = np.asarray([p[:t] for p in prompts[:SERVE_SLOTS]], np.int32)
+
+    def call():                  # drops the logits and caches it made
+        eng._prefill(grid)
+        torch.cuda.synchronize()
+
+    call()
+    t0 = time.perf_counter()
+    call()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        pwall = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    rec = {"grid": list(grid.shape), "wall_ms": wall * 1e3,
+           "profiled_wall_ms": pwall * 1e3}
+    per, n_ops = _device_us(prof)
+    if not per:
+        rec["device"] = "not measured (the profiler saw no device events)"
+        return rec
+    busy = sum(per.values()) / 1e6
+    flash = sum(us for name, us in per.items() if "flash_tc" in name) / 1e6
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    rec.update({"device_busy_ms": busy * 1e3,
+                "device_idle_share": 1.0 - busy / wall,
+                "device_idle_share_profiled": 1.0 - busy / pwall,
+                "flash_tc_ms_in_trace": flash * 1e3,
+                "device_ops": n_ops,
+                "top_device_us": [[k[:80], v] for k, v in top]})
     return rec
 
 
@@ -1528,7 +1678,7 @@ def phase_serve(device, decode_us: float) -> dict:
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=SERVE_NEW)
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches, by_route = counts(), routes()
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
     n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
@@ -1550,19 +1700,22 @@ def phase_serve(device, decode_us: float) -> dict:
            "decode_step_ms": decode_s / max(n_decode, 1) * 1e3,
            "decode_tokens_per_s": SERVE_SLOTS * n_decode / decode_s,
            "generated_tokens": sum(len(o) for o in outs),
-           "max_memory_allocated": peak, "launches": launches}
+           "max_memory_allocated": peak, "launches": launches,
+           "routes": by_route}
     assert st == {"prefills": 2, "refills": 0, "decode_steps": 30}, st
     assert all(len(o) == SERVE_NEW for o in outs), [len(o) for o in outs]
     _expect(launches, "serve", flash=n_layers * n_prefill,
             decode=n_layers * n_decode)
+    _expect_routes(by_route, "serve", tensor_core=n_layers * n_prefill)
     del eng
     torch.cuda.empty_cache()
 
+    rec["prefill_profile"] = _profile_prefill(cfg, params, prompts, device)
     rec["decode_profile"] = _profile_decode(cfg, params, prompts, device,
                                             decode_us)
     # the kernel path against the plain path (use_pallas off) at batch 1:
     # the prefill logits and the first decode step's
-    cmp = _kernel_vs_plain(params, cfg, prompts[0], device)
+    cmp = _kernel_vs_plain(params, cfg, prompts[0], device, "tensor_core")
     rec["kernel_vs_plain_batch1"] = cmp
     rec["logit_rtol"] = SERVE_LOGIT_RTOL
     emit(rec)
@@ -1588,29 +1741,32 @@ def phase_serve_f32(device) -> dict:
     params = init_params(T.param_defs(cfg), 0, torch.float32, device=device)
     sv = ServeConfig(batch_slots=2, max_len=SERVE_MAX_LEN, eos_token=-1)
     prompts = _prompts(cfg.vocab, 4, *SERVE_PROMPT, seed=1)
-    outs, launches = {}, {}
+    outs, launches, by_route = {}, {}, {}
     for path, c in (("kernels", cfg),
                     ("plain", dataclasses.replace(cfg, use_pallas=False))):
         eng = ServingEngine(c, params, sv, device=device)
         calls = _timed(eng)
         reset_counts()
         outs[path] = eng.generate(prompts, max_new_tokens=8)
-        launches[path] = counts()
+        launches[path], by_route[path] = counts(), routes()
         n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
         del eng
         torch.cuda.empty_cache()
-    cmp = _kernel_vs_plain(params, cfg, prompts[0], device)
+    cmp = _kernel_vs_plain(params, cfg, prompts[0], device, "cuda_core")
     rec = {"phase": "serve_f32", "layers": cfg.n_layers, "requests": 4,
            "slots": 2, "new_tokens": 8, "tokens_equal":
            outs["kernels"] == outs["plain"], "tokens": outs["kernels"],
-           "launches": launches, "kernel_vs_plain_batch1": cmp,
+           "launches": launches, "routes": by_route,
+           "kernel_vs_plain_batch1": cmp,
            "logit_rtol": SERVE_F32_LOGIT_RTOL}
     emit(rec)
     for tag, c in cmp.items():
         assert c["finite"] and c["rel"] <= SERVE_F32_LOGIT_RTOL, (tag, c)
     _expect(launches["kernels"], "serve_f32", flash=2 * n_prefill,
             decode=2 * n_decode)
+    _expect_routes(by_route["kernels"], "serve_f32", cuda_core=2 * n_prefill)
     _expect(launches["plain"], "serve_f32 plain")
+    _expect_routes(by_route["plain"], "serve_f32 plain")
     assert rec["tokens_equal"], (outs["kernels"], outs["plain"])
     del params
     torch.cuda.empty_cache()
@@ -1643,19 +1799,22 @@ def phase_card_vs_cpu(device) -> dict:
     calls = _timed(eng)
     reset_counts()
     card_out = eng.generate(prompts, max_new_tokens=10)
-    launches = counts()
+    launches, by_route = counts(), routes()
     reset_counts()
     launcher.main(["--arch", "gemma2-27b", "--smoke"])
     launcher_launches = counts()
     rec = {"phase": "card_vs_cpu", "config": "gemma2-27b smoke",
            "tokens_equal": card_out == cpu_out, "stats": eng.stats,
            "cpu_stats": cpu_eng.stats, "launches": launches,
-           "launcher_launches": launcher_launches}
+           "routes": by_route, "launcher_launches": launcher_launches}
     emit(rec)
     assert rec["tokens_equal"], (card_out, cpu_out)
     assert eng.stats == cpu_eng.stats and eng.stats["refills"] >= 1, rec
     _expect(launches, "card_vs_cpu", flash=cfg.n_layers * len(
         calls["prefill"]), decode=cfg.n_layers * len(calls["decode"]))
+    # the smoke config is float32 at head_dim 16: the CUDA-core route
+    _expect_routes(by_route, "card_vs_cpu",
+                   cuda_core=cfg.n_layers * len(calls["prefill"]))
     assert launcher_launches["flash_attention"] > 0 and \
         launcher_launches["decode_attention"] > 0, launcher_launches
     return rec
@@ -1694,12 +1853,16 @@ def main() -> int:
     seg["launches"] = hot["segment_sum"]["launches"]["segment_reduce"]
     attn = phase_attention(device)
     serve = phase_serve(device, attn["decode_attention"]["ms"] * 1e3)
-    for name, row in attn.items():
-        row["launches"] = serve["launches"][name]
-    phase_serve_f32(device)
+    attn["flash_attention"]["launches"] = serve["routes"]["tensor_core"]
+    attn["decode_attention"]["launches"] = \
+        serve["launches"]["decode_attention"]
+    f32 = phase_serve_f32(device)
+    attn["flash_attention_cuda_core"]["launches"] = \
+        f32["routes"]["kernels"]["cuda_core"]
     phase_card_vs_cpu(device)
     rows = list(kern.values()) + [seg, mstep, mblock,
                                   attn["flash_attention"],
+                                  attn["flash_attention_cuda_core"],
                                   attn["decode_attention"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

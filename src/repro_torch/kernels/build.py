@@ -7,6 +7,11 @@ and the flags, so an edited source or header builds anew and an
 unchanged one loads at once.  Nothing is built at import
 time: a machine without ``nvcc`` or a card imports the package freely
 and only the CUDA launch path needs the library.
+
+No library links ``libcuda``: the one driver call the kernels need,
+``cuTensorMapEncodeTiled`` (the TMA maps of ``flash_attention.cu``'s
+tensor-core kernel), is fetched at run time through the CUDA runtime's
+``cudaGetDriverEntryPointByVersion``, so the flags below are all there is.
 """
 
 from __future__ import annotations

@@ -9,12 +9,17 @@ positions (the window keeps ``kpos > qpos - window``), the softcap is
 ``tanh(x / cap) * cap`` after the scale and before the mask.
 
 Dispatch is by device, never by flag: CPU tensors run the plain version
-(``ref.attention_ref``); CUDA tensors launch ``csrc/flash_attention.cu``
-(built at first use) or raise.  Each launch adds one to
-``LAUNCHES["flash_attention"]``.  The kernel sums in another order than
-the plain version's einsum and softmax, so the two agree to a
-tolerance, not to the bit: 3e-5 in float32, 2e-2 in bfloat16 (the
-reference's own bounds, ``tests/test_kernels.py``).
+(``ref.attention_ref``); CUDA tensors launch a kernel of
+``csrc/flash_attention.cu`` (built at first use) or raise.  Which kernel
+is decided by ``_route(dtype, d)`` alone: bfloat16 at d in
+``TC_HEAD_DIMS`` takes the tensor-core kernel (``wgmma`` fed by a TMA
+ring), everything else the CUDA-core kernel.  There is no fallback
+between the two: a tensor-core call that cannot build, is refused or
+fails to launch raises.  Each launch adds one to
+``LAUNCHES["flash_attention"]`` and one to ``ROUTES[route]``.  The
+kernels sum in another order than the plain version's einsum and
+softmax, so they agree to a tolerance, not to the bit: 3e-5 in float32,
+2e-2 in bfloat16 (the reference's own bounds, ``tests/test_kernels.py``).
 """
 
 from __future__ import annotations
@@ -28,10 +33,16 @@ from .ref import attention_ref
 
 #: kernel launches since the last ``reset_launch_counts``
 LAUNCHES = {"flash_attention": 0}
+#: the same launches by route (``_route``)
+ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
-#: the largest head_dim the kernel takes (shared memory holds a
-#: 64-row Q, K and V tile of float32 at this width)
+#: the largest head_dim the kernels take: the CUDA-core kernel holds a
+#: 64-row Q, K and V tile of float32 at this width in shared memory
 MAX_HEAD_DIM = 256
+#: head_dims of the tensor-core kernel (bfloat16 only): one or two
+#: 64-column swizzled panels a row; at 256 its float32 O accumulator
+#: alone would take 128 registers a thread
+TC_HEAD_DIMS = (64, 128)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +50,8 @@ _P, _Int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fa_flash_attention": ([_P, _P, _P, _P] + [_Int] * 9
                            + [ctypes.c_float, ctypes.c_float, _P], _Int),
+    "fa_flash_attention_tc": ([_P, _P, _P, _P] + [_Int] * 8
+                              + [ctypes.c_float, ctypes.c_float, _P], _Int),
     "fa_max_head_dim": ([], _Int),
     "fa_smem_bytes": ([_Int], ctypes.c_longlong),
     "fa_error_string": ([_Int], ctypes.c_char_p),
@@ -46,8 +59,25 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call takes: "tensor_core" for bfloat16 at d in
+    ``TC_HEAD_DIMS``, else "cuda_core" (float32 at any d stays off TF32
+    tensor cores, which would break its 3e-5 bound)."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address (TMA and the
+    kernels' 16-byte loads need it); a fresh allocation always is."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _lib():
@@ -118,19 +148,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     s, kv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = _cuda_stream("flash_attention", q.device)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:            # nothing to launch, nothing counted
         return out
     lib = _lib()
-    err = lib.fa_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, t, s, h, kv, d, int(causal),
-        -1 if window is None else int(window), float(softcap), float(scale),
-        stream)
+    route = _route(q.dtype, d)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, t, s, h, kv, d, int(causal),
+             -1 if window is None else int(window), float(softcap),
+             float(scale), stream)
+    if route == "tensor_core":
+        err = lib.fa_flash_attention_tc(*args, *shape)
+    else:
+        err = lib.fa_flash_attention(*args, _DTYPES[q.dtype], *shape)
     if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed: "
+        raise RuntimeError(f"flash_attention: {route} kernel launch failed: "
                            f"{lib.fa_error_string(err).decode()} ({err})")
     LAUNCHES["flash_attention"] += 1
+    ROUTES[route] += 1
     return out
 

@@ -265,6 +265,80 @@ def test_refusals():
 
 
 # ---------------------------------------------------------------------------
+# the two CUDA routes of flash_attention
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root (its module level imports no
+    torch and touches no card)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _route_cases():
+    """(dtype, head_dim) of every config and smoke config of the repo, the
+    reference's FLASH_CASES and chip_smoke's FLASH_EDGE / FLASH_CAP."""
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    dims = {c.head_dim for a in ARCHS
+            for c in (get_config(a), get_smoke_config(a))}
+    dims |= {case[4] for case in FLASH_CASES}
+    cs = _chip_smoke()
+    dims |= {case[4] for case in cs.FLASH_EDGE + cs.FLASH_CAP}
+    return sorted(dims)
+
+
+def test_route_is_the_tensor_core_kernel_exactly_for_bf16_at_64_and_128():
+    dims = _route_cases()
+    assert {8, 16, 32, 64, 128, 256} <= set(dims), dims
+    for d in dims:
+        for dtype in (torch.float32, torch.bfloat16):
+            want = ("tensor_core" if dtype == torch.bfloat16
+                    and d in (64, 128) else "cuda_core")
+            assert FA._route(dtype, d) == want, (dtype, d)
+    assert FA.TC_HEAD_DIMS == (64, 128)
+
+
+def test_cpu_calls_count_no_route():
+    FA.reset_launch_counts()
+    q, k, v = _t(*_qkv(17, 1, 16, 16, 4, 2, 64), dtype=torch.bfloat16)
+    FA.flash_attention(q, k, v)
+    assert FA.ROUTES == {"tensor_core": 0, "cuda_core": 0}
+    assert FA.LAUNCHES == {"flash_attention": 0}
+
+
+def _cu_source(src):
+    import os
+    path = os.path.join(os.path.dirname(FA.__file__), "..", "csrc", src)
+    with open(path) as f:
+        return f.read()
+
+
+def test_tensor_core_shared_memory_fits_the_card():
+    """The tensor-core kernel's dynamic shared memory, from the constants
+    in its source (alignment slack, a Q block of TC_BM rows, TC_STAGES
+    pairs of K/V tiles of TC_BK keys, 3 mbarriers a stage), at each
+    routed head_dim is at most the 232,448 B a block may use on an H100."""
+    import re
+    text = _cu_source("flash_attention.cu")
+    c = {name: int(re.search(r"constexpr int " + name + r" = (\d+);",
+                             text).group(1))
+         for name in ("TC_BM", "TC_BK", "TC_STAGES", "TC_ALIGN")}
+    assert "return TC_ALIGN + q_bytes(D) + TC_STAGES * 2 * tile_bytes(D)" \
+        in text
+    for d in FA.TC_HEAD_DIMS:
+        total = (c["TC_ALIGN"] + c["TC_BM"] * d * 2
+                 + c["TC_STAGES"] * 2 * c["TC_BK"] * d * 2
+                 + c["TC_STAGES"] * 3 * 8)
+        assert total <= 232_448, (d, total)
+    assert c["TC_BM"] == 128 and c["TC_BK"] % 16 == 0
+
+
+# ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
 
@@ -292,6 +366,34 @@ def test_flash_kernel_on_cuda():
                                        **tol)
             n += 1
     assert FA.LAUNCHES["flash_attention"] == n
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_route_on_cuda():
+    """bfloat16 at d = 64 and 128 (the FLASH_CASES shapes, gemma2's heads
+    with its scale, window and softcap, and logits past caps 2, 5, 50)
+    takes the tensor-core kernel, within 2e-2 of the plain version run in
+    float32 on the same values; ROUTES counts every launch there."""
+    dev = _cuda()
+    cases = [c[:8] + (0.3,) for c in FLASH_CASES if c[4] in FA.TC_HEAD_DIMS]
+    cases += [(1, 600, 32, 16, 128, True, 256, 50.0, 0.3),
+              (2, 300, 32, 16, 128, True, None, 50.0, 0.3)]
+    cases += [(1, 256, 4, 2, 64, True, 48, cap, 2.0) for cap in CAPS]
+    FA.reset_launch_counts()
+    for b, t, h, kv, d, causal, window, cap, sd in cases:
+        q, k, v = _qkv(t + d, b, t, t, h, kv, d)
+        q, k, v = [x.to(dev) for x in _t(q * sd / 0.3, k * sd / 0.3, v,
+                                         dtype=torch.bfloat16)]
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  scale=1.0 / 12.0 if h == 32 else None)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                                   **BF16)
+    assert FA.ROUTES == {"tensor_core": len(cases), "cuda_core": 0}
+    assert FA.LAUNCHES["flash_attention"] == len(cases)
 
 
 @pytest.mark.cuda
@@ -337,14 +439,24 @@ def test_kernels_at_the_cap_on_cuda():
                                      (DA, "decode_attention.cu")])
 def test_ctypes_signatures_match_the_sources(mod, src):
     """Each C entry point's declared argtypes count its parameters in
-    the CUDA source (ctypes would otherwise pass too few)."""
-    import os
+    the CUDA source (ctypes would otherwise pass too few), and each
+    pointer, int and float parameter is declared as one; the library
+    exports every C entry point the wrapper declares and no other."""
+    import ctypes
     import re
-    path = os.path.join(os.path.dirname(FA.__file__), "..", "csrc", src)
-    with open(path) as f:
-        text = f.read()
+    text = _cu_source(src)
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_float: "float"}
     for sym, (argtypes, _) in mod._SIGNATURES.items():
         m = re.search(r'extern "C" [^(]*\b' + sym + r"\(([^)]*)\)", text)
         assert m, sym
         params = [p for p in m.group(1).split(",") if p.strip()]
         assert len(params) == len(argtypes), (sym, params)
+        for p, a in zip(params, argtypes):
+            want = ("ptr" if "*" in p else "float" if "float" in p
+                    else "int" if re.search(r"\bint\b", p) else p)
+            assert kinds.get(a) == want, (sym, p, a)
+    exported = set(re.findall(r'extern "C" [^(]*?\b(\w+)\(', text))
+    assert exported == set(mod._SIGNATURES), exported
+    if mod is FA:
+        assert "fa_flash_attention_tc" in exported
