@@ -28,23 +28,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
                CPU (plain versions) and must agree; then 5000 steps on
                the card give steps/s and peak device memory;
   7. mega    — the dc batch through the megakernel: 200 ``megastep``
-               launches held StepTrace by StepTrace to the flow tier,
-               ``megastep_block`` at F in {1, 127, 129, 8193}, then the
-               5000-step dc sweep as one launch per trace window, bitwise
-               equal to phase 6's result, with its steps/s and profile;
+               launches held StepTrace by StepTrace to the flow tier
+               (timed by CUDA-graph replay), ``megastep_block`` at F in
+               {1, 127, 129, 8193} and on the routing grid with two VCs a
+               wire, then the 5000-step dc sweep as one launch per trace
+               window, bitwise equal to phase 6's result, with its
+               steps/s and profile; every mega path (here and in phases
+               4, 5 and 8) prints its cluster size and the SMs it used;
   8. hotspot — half of 4096 flows into one host of the same dragonfly:
                too skewed for the dense walk, so the segment sum runs on
-               the ``segment_reduce`` kernel; with ``reduce="pallas"`` and
-               on the CPU it must agree bitwise;
+               the ``segment_reduce`` kernel; with ``reduce="pallas"``,
+               through the megakernel and on the CPU it must agree
+               bitwise;
   9. attention — ``flash_attention`` (both routes: the tensor-core
                kernel for bf16 at d 64/128, the CUDA-core kernel for
                float32 and other widths; each call asserts its route) and
                ``decode_attention`` against their plain versions (3e-5
                float32, 2e-2 bfloat16) at gemma2-27b's serving shapes, at
                the edge shapes of tests/test_kernels.py, where every kv
-               tile is skipped and where the softcap bites; kernel /
-               plain / bound time (with the SFU term beside the tensor
-               bound), flex_attention at softcap 50 and
+               tile is skipped, where the softcap bites and (decode) at
+               the edges of its tiling (d 8-256, GQA groups 1-8, a cache
+               no multiple of the tile, a whole tile or batch row
+               invalid); kernel / plain / bound time (with the SFU term
+               beside the tensor bound; decode by CUDA-graph replay, two
+               launches bitwise equal), flex_attention at softcap 50 and
                ``scaled_dot_product_attention`` at softcap 0; the
                CUDA-core route timed at serve_f32's float32 prefill;
  10. serve   — gemma2-27b at full width and depth in bfloat16 (random
@@ -187,6 +194,17 @@ def _launches_once_a_step(launches: dict, n_steps: int, where: str):
     """Each CC kernel of the flow path launched exactly once a step (the
     dense walk sums the queues: no segment_reduce, no megakernel)."""
     _expect(launches, where, cc=n_steps)
+
+
+def _geometry(entry: str, runs: int) -> dict:
+    """The megakernel's launch geometry on the last ``entry`` launch:
+    cluster size, SMs used (runs x cluster), shared memory a CTA and
+    what it keeps there."""
+    from repro_torch.kernels import fluid_step as FS
+    geo = FS.GEOMETRY[entry]
+    return {"cluster": geo.cluster, "sms_used": runs * geo.cluster,
+            "smem_bytes": geo.smem_bytes, "push_rows": geo.push_rows,
+            "stage_paths": geo.stage_paths}
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -381,6 +399,21 @@ def _flows_sweep(F: int):
                                for s in (CCScheme.DCQCN,
                                          CCScheme.DCQCN_REV)},
                       scenarios={f"f{F}": spec})
+
+
+def _vc2_sweep():
+    """The golden routing scenes (K = 4 min/valiant/UGAL paths) with two
+    VCs a wire: the three schemes' stages x the three routings."""
+    from repro_torch.core import CCSpec, Sweep
+    from repro_torch.core.params import LinkParams
+    scen = _routing_scenes()
+    stages = {"PFC_ONLY": ("cp", "np", "pfc"), "DCQCN": ("cp", "np", "rp"),
+              "DCQCN_REV": ("ecp", "enp", "erp")}
+    cfgs = {f"{s}/{r}": CCSpec(marking=m, notification=n, reaction=x,
+                               routing=r, link=LinkParams(n_vcs=2))
+            for s, (m, n, x) in stages.items()
+            for r in ("min", "valiant", "ugal")}
+    return Sweep.grid(configs=cfgs, scenarios=scen)
 
 
 def _seg_cases(device):
@@ -595,17 +628,23 @@ def phase_paper(device) -> dict:
 # phase 5: golden grids
 # ---------------------------------------------------------------------------
 
-def _golden_routing():
-    from repro_torch.core import CCScheme, PAPER_CONFIG, ScenarioSpec, Sweep
+def _routing_scenes() -> dict:
+    """The two scenes of the golden routing grid (K = 4 paths)."""
+    from repro_torch.core import ScenarioSpec
     from repro_torch.core.workloads import group_shift
     from repro_torch.net import FabricSpec
     dfly = FabricSpec.dragonfly(a=2, p=2, h=2)
     ft = FabricSpec.fat_tree(4, taper=2)
-    scen = {"dfly_adv": group_shift(5, 4, t_stop=0.5e-3).spec(
+    return {"dfly_adv": group_shift(5, 4, t_stop=0.5e-3).spec(
                 fabric=dfly, n_paths=4, route_seed=0, label="dfly_adv"),
             "ft_perm": ScenarioSpec.permutation(
                 16, seed=2, fabric=ft, n_paths=4, route_seed=0,
                 t_start=0.0, t_stop=0.5e-3, label="ft_perm")}
+
+
+def _golden_routing():
+    from repro_torch.core import CCScheme, PAPER_CONFIG, Sweep
+    scen = _routing_scenes()
     cfgs = {f"{s.name}/{r}": PAPER_CONFIG.replace(scheme=s, routing=r)
             for s in CCScheme for r in ("min", "valiant", "ugal")}
     return (Sweep.grid(configs=cfgs, scenarios=scen), "routing_sweep.json",
@@ -697,7 +736,8 @@ def _mega_rerun(sweep, res, n_steps, trace_every, device, where) -> dict:
     same, abs_d, _ = _result_diff(mres, res)
     rec = {"wall_s": wall, "steps_per_s": n_steps / wall,
            "bitwise_equal_flow_tier": same, "max_abs_diff": abs_d,
-           "windows": len(res.times), "launches": launches}
+           "windows": len(res.times), "launches": launches,
+           "geometry": _geometry("megastep_block", len(sweep.points))}
     assert same, (where, "mega differs from the flow tier", abs_d)
     _expect(launches, f"{where} mega", block=len(res.times))
     return rec, mres
@@ -863,14 +903,16 @@ def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
         for k, u in pairs:
             assert torch.equal(u, b[k] if isinstance(b, dict) else b), k
     del flow
+    step_geo = _geometry("megastep", R)
     st0 = stm.state
-    # CUDA events over eager calls: a megakernel launch outlasts its
-    # host cost, so this is its device time; the plain version (the
-    # flow tier's step) is host-bound, and this is what it costs
-    step_ms = _event_ms(lambda: stm.step(st0), 20)
+    # device time: launches replayed from a CUDA graph (the wrapper's
+    # host cost, ~0.3-0.5 ms a call, is out of it); the eager time
+    # beside it; the plain version (the flow tier's step) is host-bound,
+    # and this is what it costs
+    step_ms, step_eager_ms = _time_ms(lambda: stm.step(st0), 20)
     plain_ms = _event_ms(lambda: stg.step(st0), 5)
     step_bound, step_by = _mega_bound(stm, 1, False)
-    # megastep_block at ragged flow counts
+    # megastep_block at ragged flow counts, and with two VCs a wire
     ragged = {}
     for nf in (1, 127, 129, 8193):
         sw = _flows_sweep(nf)
@@ -878,8 +920,20 @@ def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
         b = sw.run(n_steps=200, trace_every=10, device=device,
                    use_kernels="mega")
         same, abs_d, _ = _result_diff(b, a)
-        ragged[nf] = same
+        ragged[nf] = {"bitwise_equal": same,
+                      **_geometry("megastep_block", len(sw.points))}
         assert same, ("megastep_block", nf, abs_d)
+    sw = _vc2_sweep()
+    a = sw.run(n_steps=300, trace_every=10, device=device)
+    reset_counts()
+    b = sw.run(n_steps=300, trace_every=10, device=device,
+               use_kernels="mega")
+    same, abs_d, _ = _result_diff(b, a)
+    vc2 = {"runs": len(sw.points), "steps": 300, "bitwise_equal": same,
+           "launches": counts(),
+           **_geometry("megastep_block", len(sw.points))}
+    assert same, ("megastep_block V=2", abs_d)
+    _expect(vc2["launches"], "mega V=2", block=30)
     # the dc sweep, one launch per trace window
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -888,9 +942,17 @@ def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
                     use_kernels="mega")
     wall = time.perf_counter() - t0
     block_launches = counts()
+    block_geo = _geometry("megastep_block", R)
     peak = torch.cuda.max_memory_allocated()
     same, abs_d, _ = _result_diff(res, dc["result"])
     windows = DC_STEPS // 100
+    # the sweep's host side: its prepare (stacking, CSR tables, the
+    # megakernel's tables and geometry) as a share of the wall time
+    t0 = time.perf_counter()
+    sweep.prepare(DC_STEPS, trace_every=100, device=device,
+                  use_kernels="mega")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
     stb = sweep.prepare(100, trace_every=100, device=device,
                         use_kernels="mega")
     block_ms = _event_ms(lambda: stb.block(stb.state), 3)
@@ -900,9 +962,13 @@ def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
     rec = {"phase": "mega", "runs": R, "flows": F,
            "megastep": {"steps": n, "bitwise_equal_flow_tier": True,
                         "launches": step_launches, "us": step_ms * 1e3,
+                        "timed_by": "cuda graph replay",
+                        "eager_us": step_eager_ms * 1e3,
                         "plain_us": plain_ms * 1e3,
-                        "bound_us": step_bound * 1e3},
+                        "bound_us": step_bound * 1e3,
+                        "geometry": step_geo},
            "megastep_block_ragged_bitwise": ragged,
+           "megastep_block_vc2": vc2,
            "sweep": {"steps": DC_STEPS, "windows": windows, "wall_s": wall,
                      "steps_per_s": DC_STEPS / wall,
                      "run_steps_per_s": R * DC_STEPS / wall,
@@ -910,9 +976,11 @@ def phase_mega(device, dc: dict) -> tuple[dict, dict, dict]:
                      "max_memory_allocated": peak,
                      "bitwise_equal_flow_tier": same, "max_abs_diff": abs_d,
                      "launches": block_launches,
+                     "prepare_s": prepare_s,
                      "window_us": block_ms * 1e3,
                      "plain_window_us": block_plain_ms * 1e3,
-                     "bound_us": block_bound * 1e3},
+                     "bound_us": block_bound * 1e3,
+                     "geometry": block_geo},
            "profile": profile_steps(sweep, device, n=100, mega=True)}
     emit(rec)
     assert same, ("mega dc sweep differs from the flow tier", abs_d)
@@ -970,10 +1038,19 @@ def phase_hotspot(device) -> dict:
                     "launches": launches}
         _expect(launches, f"hotspot {tag}", cc=HOT_STEPS,
                 seg=passes * HOT_STEPS)
+    reset_counts()
+    runs["mega"] = sweep.run(n_steps=HOT_STEPS, trace_every=100,
+                             device=device, use_kernels="mega")
+    rec["mega"] = {"launches": counts(),
+                   **_geometry("megastep_block", len(sweep.points))}
+    _expect(rec["mega"]["launches"], "hotspot mega",
+            block=HOT_STEPS // 100)
     t0 = time.perf_counter()
     runs["cpu"] = sweep.run(n_steps=HOT_STEPS, trace_every=100,
                             device="cpu")
     rec["cpu_wall_s"] = time.perf_counter() - t0
+    rec["mega_bitwise_equal"] = _result_diff(runs["mega"],
+                                             runs["segment_sum"])[0]
     rec["pallas_bitwise_equal"] = _result_diff(runs["pallas"],
                                                runs["segment_sum"])[0]
     rec["cpu_bitwise_equal"] = _result_diff(runs["cpu"],
@@ -984,6 +1061,7 @@ def phase_hotspot(device) -> dict:
                                 / 1e9)
     emit(rec)
     assert rec["pallas_bitwise_equal"] and rec["cpu_bitwise_equal"], rec
+    assert rec["mega_bitwise_equal"], rec
     assert rec["delivered_gb"] > 0, rec
     return rec
 
@@ -1224,6 +1302,56 @@ def _decode_edges(device, g) -> dict:
     return errs
 
 
+#: the split kernel's tiling edges: head dims and GQA group sizes
+DECODE_TILE_DIMS = (8, 32, 64, 128, 256)
+DECODE_TILE_GROUPS = (1, 2, 4, 8)
+
+
+def _decode_tiling(device, g) -> dict:
+    """decode_attention where its tiling has edges, in both dtypes
+    against the plain version: at each d in DECODE_TILE_DIMS and g in
+    DECODE_TILE_GROUPS (2 kv heads, batch 2) a cache of 5 tiles + 3
+    slots (no multiple of the tile), the second tile wholly invalid and
+    batch row 1 with no valid slot at all (the kernel's 0 there)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    errs = {}
+    for d in DECODE_TILE_DIMS:
+        for grp in DECODE_TILE_GROUPS:
+            for dt in (torch.float32, torch.bfloat16):
+                b, kv = 2, 2
+                h = kv * grp
+                tile = DA.decode_plan(b, 1, h, kv, d, dt).tile
+                s = 5 * tile + 3
+                q = _randn(g, (b, h, d), dt, device)
+                k, v = [_randn(g, (b, s, kv, d), dt, device)
+                        for _ in range(2)]
+                valid = torch.rand((b, s), generator=g, device=device) > 0.3
+                valid[:, tile:2 * tile] = False
+                valid[1] = False
+                plan = DA.decode_plan(b, s, h, kv, d, dt)
+                tag = (f"tiling d{d} g{grp} s{s} tile{tile} "
+                       f"split{plan.keys_per_split} {dt}")
+                got = DA.decode_attention(q, k, v, valid, softcap=GEMMA_CAP)
+                want = DA.decode_attention_plain(q, k, v, valid,
+                                                 softcap=GEMMA_CAP)
+                errs[tag] = _held(got[:1], want[:1], str(dt)[6:], tag)
+                assert not bool(got[1].any()), tag
+    return errs
+
+
+def _graph_or_events(fn, n: int = 50) -> tuple[float, str]:
+    """(device ms a call, how it was timed): CUDA-graph replay where
+    ``fn`` can be captured, else CUDA events over eager calls."""
+    import torch
+    try:
+        return _time_ms(fn, n)[0], "cuda graph replay"
+    except Exception as e:                     # not capturable
+        torch.cuda.synchronize()
+        return _event_ms(fn, n), (f"cuda events over eager calls "
+                                  f"({type(e).__name__})")
+
+
 def _flex_call(qT, kT, vT, *, window, valid):
     """One compiled ``flex_attention`` call computing the kernels'
     function at gemma2's scale and softcap, on [b, heads, len, d]
@@ -1301,6 +1429,7 @@ def phase_attention(device) -> dict:
     g = torch.Generator(device=device).manual_seed(9)
     flash_errs = _flash_edges(device, g)
     decode_errs = _decode_edges(device, g)
+    decode_errs.update(_decode_tiling(device, g))
     cap_errs, moved = _cap_cases(device, g)
     flash_errs.update(cap_errs["flash"])
     decode_errs.update(cap_errs["decode"])
@@ -1397,7 +1526,12 @@ def phase_attention(device) -> dict:
         valid = (torch.arange(s, device=device) < n_valid).expand(b, s)
         valid = valid.contiguous()
         kw = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
-        ms = _event_ms(lambda: DA.decode_attention(q, k, v, valid, **kw), 20)
+        kern = lambda: DA.decode_attention(q, k, v, valid, **kw)  # noqa
+        rerun_same = bool(torch.equal(kern(), kern()))
+        # device time from CUDA-graph replay: at ~70 us the wrapper's
+        # host cost is comparable to the launch, so eager events would
+        # time the host (the eager time is kept beside it)
+        ms, eager_ms = _time_ms(kern, 50)
         plain_ms = _event_ms(
             lambda: DA.decode_attention_plain(q, k, v, valid, **kw), 5)
         # K/V rows of the valid slots only (the kernel loads no other),
@@ -1407,10 +1541,17 @@ def phase_attention(device) -> dict:
         fl = 4.0 * b * h * n_valid * d
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = fl / BF16_FLOPS * 1e3
-        times[layer] = {"us": ms * 1e3, "plain_us": plain_ms * 1e3,
+        plan = DA.decode_plan(b, s, h, kv, d, bf)
+        times[layer] = {"us": ms * 1e3, "timed_by": "cuda graph replay",
+                        "eager_us": eager_ms * 1e3,
+                        "plain_us": plain_ms * 1e3,
                         "bound_us": max(b_ms, o_ms) * 1e3,
                         "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                        "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9}
+                        "bound_share": max(b_ms, o_ms) / ms,
+                        "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9,
+                        "rerun_bitwise_equal": rerun_same,
+                        "plan": plan._asdict()}
+        assert rerun_same, ("decode_attention rerun", layer)
         qT, kT, vT = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         kT, vT = kT.contiguous(), vT.contiguous()
         mask = valid[:, None, None, :]
@@ -1418,16 +1559,19 @@ def phase_attention(device) -> dict:
             qT, kT, vT, attn_mask=mask, scale=GEMMA_SCALE, enable_gqa=True)
         err = _held(DA.decode_attention(q, k, v, valid, scale=GEMMA_SCALE),
                     lib()[:, :, 0], "bfloat16", f"sdpa decode {layer}")
+        lib_ms, how = _graph_or_events(lib)
         sdpa[layer] = {
-            "library_us": _event_ms(lib, 20) * 1e3,
-            "kernel_softcap0_us": _event_ms(lambda: DA.decode_attention(
-                q, k, v, valid, scale=GEMMA_SCALE), 20) * 1e3,
+            "library_us": lib_ms * 1e3, "timed_by": how,
+            "kernel_softcap0_us": _time_ms(lambda: DA.decode_attention(
+                q, k, v, valid, scale=GEMMA_SCALE), 50)[0] * 1e3,
             "max_abs_err_vs_kernel": err}
         lib = _flex_call(qT, kT, vT, window=None, valid=valid)
         err = _held(DA.decode_attention(q, k, v, valid, **kw),
                     lib()[:, :, 0], "bfloat16", f"flex decode {layer}")
-        flex[layer] = {"library_us": _event_ms(lib, 20) * 1e3,
-                       "max_abs_err_vs_kernel": err}
+        lib_ms, how = _graph_or_events(lib)
+        flex[layer] = {"library_us": lib_ms * 1e3, "timed_by": how,
+                       "max_abs_err_vs_kernel": err,
+                       "kernel_faster": ms < lib_ms}
     rec["decode"] = {"shape": [b, SERVE_MAX_LEN, h, kv, d],
                      "dtype": "bfloat16", "softcap": GEMMA_CAP,
                      "times": times, "flex_softcap50": flex,

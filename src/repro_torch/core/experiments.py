@@ -640,7 +640,8 @@ class Sweep:
 
         block = None
         if kernel_tier(use_kernels) == "mega":
-            body, mplan = step, mega.mega_plan(par_b, packed, plan.dt)
+            body, mplan = step, mega.mega_plan(
+                par_b, packed, plan.dt, sd=sd_b, plan=plan)
 
             def step(st):
                 return mega.megastep(st, sd_b, par_b, plan, mplan,

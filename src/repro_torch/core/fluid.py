@@ -633,7 +633,8 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
 
     if kernel_tier(use_kernels) == "mega":
         return mega.megastep(st, sd, par, plan,
-                             mega.mega_plan(par, packed_react, plan.dt),
+                             mega.mega_plan(par, packed_react, plan.dt,
+                                            sd=sd, plan=plan),
                              body=body, n_switches=n_switches, n_vcs=n_vcs)
     return body(st)
 
@@ -973,7 +974,7 @@ def make_step_fn(scn: Scenario, cfg: "CCConfig | CCSpec",
 
     if kernel_tier(use_kernels) != "mega":
         return step
-    mplan = mega.mega_plan(par, packed, plan.dt)
+    mplan = mega.mega_plan(par, packed, plan.dt, sd=sd, plan=plan)
 
     def mega_step(st: FluidState):
         return mega.megastep(st, sd, par, plan, mplan, body=step,

@@ -125,7 +125,7 @@ def block_fn_for(sd, par, plan, *, n_switches: int, n_vcs: int,
     packed = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
     window = torch.tensor(trace_every * dt, dtype=torch.float32,
                           device=plan.dt.device)
-    mplan = mega.mega_plan(par, packed, plan.dt,
+    mplan = mega.mega_plan(par, packed, plan.dt, sd=sd, plan=plan,
                            window=float(trace_every * dt))
 
     def body(s):

@@ -12,12 +12,18 @@ Dispatch is by device, never by flag: CPU tensors run the plain version
 pass, one wrapper launch; built at first use) or raise.  Each launch adds
 one to ``LAUNCHES["decode_attention"]``.  Kernel and plain version agree
 to 3e-5 in float32 and 2e-2 in bfloat16 (the reference's bounds).
+
+``decode_plan`` is the launch's geometry, computed on the host: how a
+K/V row is cut into 16-byte chunks over a warp's lanes, the tile of keys
+a warp loads at once, and the split of the keys that fills the card
+(see the note at the top of the source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -29,16 +35,92 @@ LAUNCHES = {"decode_attention": 0}
 
 _P, _Int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "da_decode_attention": ([_P] * 8 + [_Int] * 6
+    "da_decode_attention": ([_P] * 8 + [_Int] * 10
                             + [ctypes.c_float, ctypes.c_float, _P], _Int),
-    "da_parts": ([_Int], _Int),
     "da_max_head_dim": ([], _Int),
-    "da_smem_bytes": ([_Int, _Int], ctypes.c_longlong),
+    "da_tile_keys": ([_Int, _Int, _Int], _Int),
     "da_error_string": ([_Int], ctypes.c_char_p),
 }
 
-#: dynamic shared memory a CTA may take on Hopper (227 KB)
-SMEM_CAP = 232448
+#: warps a CTA of the split kernel (``WPC`` in the source) and the CTAs
+#: of it an SM holds at once (``__launch_bounds__(256, 2)``)
+WARPS_PER_CTA = 8
+CTAS_PER_SM = 2
+#: SMs of an H100 SXM: the plan's default (the wrapper asks the card)
+N_SM = 132
+#: bytes a lane loads at once
+CHUNK_BYTES = 16
+
+
+class DecodePlan(NamedTuple):
+    """One launch's geometry (``decode_plan``)."""
+
+    gc: int              # query heads a warp takes (1, 2 or 4; divides g)
+    lpr: int             # lanes a K/V row takes (a power of two <= 32)
+    vpl: int             # 16-byte chunks a lane holds of a row (1 or 2)
+    rows: int            # rows of K (and of V) a lane loads a tile
+    tile: int            # keys a warp loads at once: rows * 32 / lpr
+    keys_per_split: int  # a multiple of tile
+    nsplit: int          # splits of the s keys
+    units: int           # warps with work: b * nsplit * kv * (g / gc)
+    ctas: int            # CTAs of the split kernel
+    smem_bytes: int      # shared memory a CTA: none, all in registers
+    part_rows: int       # partial (m, l, acc[d]) rows: b * h * nsplit
+
+
+def decode_plan(b: int, s: int, h: int, kv: int, d: int,
+                dtype: torch.dtype, n_sm: int = N_SM) -> DecodePlan:
+    """The split kernel's geometry at these shapes (the rules of
+    ``csrc/decode_attention.cu``, which refuses any other plan).
+
+    A row of d elements is cut into 16-byte chunks; ``lpr`` lanes (the
+    chunk count rounded up to a power of two, at most 32) take one row,
+    each ``vpl`` chunks of it, so a warp covers ``32 / lpr`` keys a
+    load and ``tile`` keys with the ``rows`` loads a lane issues before
+    it uses any.  A warp is one unit of (batch, split, kv head, chunk of
+    ``gc`` query heads).  The split length is the key count that gives
+    at most ``n_sm * CTAS_PER_SM * WARPS_PER_CTA`` units (every SM's
+    resident warps once), rounded up to a multiple of the tile: the
+    units fill one wave (or, where b * kv * g / gc is more, take one
+    split each)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head_dim {d} outside 1.."
+                         f"{MAX_HEAD_DIM} (MAX_HEAD_DIM)")
+    if kv < 1 or h % kv:
+        raise ValueError(f"decode_attention: {h} query heads are not a "
+                         f"multiple of {kv} kv heads")
+    g = h // kv
+    gc = 4 if g % 4 == 0 else 2 if g % 2 == 0 else 1
+    vec = CHUNK_BYTES // torch.empty((), dtype=dtype).element_size()
+    nch = -(-d // vec)
+    lpr = 1
+    while lpr < nch and lpr < 32:
+        lpr *= 2
+    vpl = -(-nch // 32)
+    rows = (4 if gc >= 2 else 8) // vpl
+    tile = rows * 32 // lpr
+    per_split = b * kv * (g // gc)
+    want = n_sm * CTAS_PER_SM * WARPS_PER_CTA
+    nsplit = max(1, want // max(per_split, 1))
+    ks = -(-max(-(-s // nsplit), 1) // tile) * tile
+    nsplit = max(1, -(-s // ks))
+    units = per_split * nsplit
+    return DecodePlan(gc=gc, lpr=lpr, vpl=vpl, rows=rows, tile=tile,
+                      keys_per_split=ks, nsplit=nsplit, units=units,
+                      ctas=-(-units // WARPS_PER_CTA), smem_bytes=0,
+                      part_rows=b * h * nsplit)
+
+
+_N_SM: dict[int, int] = {}
+
+
+def _n_sm(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _N_SM[idx]
 
 
 def reset_launch_counts() -> None:
@@ -91,22 +173,21 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
         # nothing to attend to: the TPU kernel's acc / max(l, 1e-30) = 0
         return out.zero_()
     lib = _lib()
-    g = h // kv
-    smem = lib.da_smem_bytes(g, d)
-    if smem > SMEM_CAP:
-        raise ValueError(f"decode_attention: g={g}, head_dim={d} needs "
-                         f"{smem} B of shared memory > SMEM_CAP {SMEM_CAP}")
+    plan = decode_plan(b, s, h, kv, d, q.dtype, n_sm=_n_sm(q.device))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     valid = valid.contiguous()
-    n = b * kv * lib.da_parts(s) * g
-    part_m = torch.empty(n, dtype=torch.float32, device=q.device)
-    part_l = torch.empty(n, dtype=torch.float32, device=q.device)
-    part_acc = torch.empty(n * d, dtype=torch.float32, device=q.device)
+    part_m = torch.empty(plan.part_rows, dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty(plan.part_rows, dtype=torch.float32,
+                         device=q.device)
+    part_acc = torch.empty(plan.part_rows * d, dtype=torch.float32,
+                           device=q.device)
     err = lib.da_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, s, h, kv, d, float(softcap),
-        float(scale), stream)
+        out.data_ptr(), _DTYPES[q.dtype], b, s, h, kv, d, plan.gc, plan.lpr,
+        plan.keys_per_split, plan.nsplit, float(softcap), float(scale),
+        stream)
     if err != 0:
         raise RuntimeError(f"decode_attention: kernel launch failed: "
                            f"{lib.da_error_string(err).decode()} ({err})")

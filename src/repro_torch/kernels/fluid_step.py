@@ -7,10 +7,15 @@ plain version (port of ``repro.kernels.fluid_step``).
     ``n_substeps`` steps: ``(state', TraceSample)``, the window folded in
     the kernel the way ``core.simulator`` folds it on the host.
 
-The kernel (``csrc/fluid_step.cu``) runs one CTA per run with the state
-in global memory and the per-queue sums in shared memory; stages are
-selected per run by code inside it, so a whole CC-stage grid is one
-launch.  It is held bitwise to the port's flow tier on the card.
+The kernel (``csrc/fluid_step.cu``) runs one thread-block cluster per
+run: ``mega_geometry`` gives each run c CTAs (``cluster_size``) and
+splits its flows, wires and switches over them in equal slices; state
+stays in global memory, the per-queue and per-wire values live in
+shared-memory replicas that their owners push over the cluster, and the
+run's incidence rows and paths are staged in shared memory (as the int32
+tables of ``mega_plan``) where they fit.  Stages are selected per run by
+code inside it, so a whole CC-stage grid is one launch.  It is held
+bitwise to the port's flow tier on the card.
 
 Dispatch is by device, never by flag: on CPU tensors both entry points
 run their plain version, which is the port's step itself (``body``, as
@@ -21,25 +26,36 @@ launch adds one to ``LAUNCHES[<entry point>]``.
 
 Limits, checked on every device so the plain version models the kernel:
 the kernel knows the built-in CC stages only (a registry holding another
-raises, naming it), at most ``MEGA_MAX_HOPS`` hops, and per-queue sums
-that fit ``MEGA_SMEM_CAP`` bytes of shared memory (``mega_footprint``).
+raises, naming it), at most ``MEGA_MAX_HOPS`` hops, and per-queue
+replicas that fit ``MEGA_SMEM_CAP`` bytes of shared memory in one CTA
+(``mega_footprint``, the layout at cluster size 1 with nothing staged).
 There is no fallback to the flow tier.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 #: kernel launches per entry point since the last ``reset_launch_counts``
 LAUNCHES = {"megastep": 0, "megastep_block": 0}
+#: the geometry of each entry point's last launch (``MegaGeometry``)
+GEOMETRY: dict = {}
 
 #: shared memory one CTA may use on an H100 (227 KB of the SM's 256 KB)
 MEGA_SMEM_CAP = 232448
 #: hops per path the kernel holds per flow (``kMaxHops`` in the source)
 MEGA_MAX_HOPS = 8
+#: CTAs a run's cluster may take (``kMaxCluster``: the portable cluster
+#: size on Hopper)
+MEGA_MAX_CLUSTER = 8
+#: threads of one CTA (``kThreads`` in the source)
+MEGA_THREADS = 384
+#: SMs of an H100 SXM: the plan's default (the wrapper asks the card)
+N_SM = 132
 
 #: the stages the kernel was built with, in code order (``cc`` freezes
 #: the built-in order)
@@ -75,12 +91,14 @@ class MegaArgs(ctypes.Structure):
 
     _fields_ = ([(n, _I) for n in ("R", "F", "H", "K", "L", "V", "S", "D",
                                    "NSW", "n_substeps", "block", "nfp",
-                                   "nip")]
+                                   "nip", "cluster", "q_cap", "flow_cap",
+                                   "rows_cap", "pool_cap", "push_rows",
+                                   "stage_paths")]
                 + [(n, _P) for n in (
                     "fpar", "ipar", "gen_rate", "t_start", "t_stop",
                     "volume", "cap_ext", "nic_buffer", "jitter", "sink_ext",
-                    "rtt", "alt_routes", "alt_hops", "vc", "red_perm",
-                    "red_off", "pool_perm", "pool_off")]
+                    "rtt", "path_q", "path_n", "path_pos", "red_rows",
+                    "red_off", "pool_rows", "pool_off")]
                 + [("st_in", _P * _N), ("st_out", _P * _N)]
                 + [(n, _P) for n in (
                     "tr_inst_thr", "tr_max_q", "tr_n_paused", "tr_marked",
@@ -90,6 +108,7 @@ class MegaArgs(ctypes.Structure):
 
 _SIGNATURES = {
     "fs_mega": ([_P, _I, _P], ctypes.c_int),
+    "fs_max_clusters": ([_I, _I], _I),
     "fs_args_size": ([], _I),
     "fs_row_sizes": ([_I], _I),
     "fs_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -119,13 +138,118 @@ def n_float_row() -> int:
     return len(FLOAT_ROW) + sum(n for _, n in REACT_ROWS)
 
 
+def smem_words(*, S: int, L: int, NSW: int, V: int, K: int, H: int,
+               q_cap: int, flow_cap: int, rows_cap: int, pool_cap: int,
+               push_rows: bool, stage_paths: bool) -> int:
+    """4-byte words of one CTA's shared memory (``smem_words`` in the
+    source): the replicas (3 per-queue and 7 per-wire arrays, the switch
+    pool), the CTA's own per-queue sums, 32 warp maxima, 4 + V counters,
+    the cluster's partials, the pool rows of its switches, then its
+    queues' pushed rows (3 channels) and its flows' staged paths (queue
+    ids, hop counts and, with pushed rows, the rows' positions)."""
+    return (3 * (S + 1) + 7 * (L + 1) + NSW + 3 * q_cap + 32 + (4 + V)
+            + MEGA_MAX_CLUSTER * (3 + V) + pool_cap
+            + (3 * rows_cap if push_rows else 0)
+            + ((flow_cap * K * (H + 1) + (flow_cap * K * H if push_rows
+                                          else 0)) if stage_paths else 0))
+
+
 def mega_footprint(n_queues: int, n_links: int, n_switches: int,
                    n_vcs: int) -> int:
-    """Shared-memory bytes of one CTA: five [S + 1] and six [L + 1]
-    per-queue / per-wire float arrays, the switch pool, 32 warp
-    partials and 4 + V counters (the layout of ``mega_kernel``)."""
-    return 4 * (5 * (n_queues + 1) + 6 * (n_links + 1) + n_switches + 32
-                + 4 + n_vcs)
+    """Shared-memory bytes one CTA needs at least: the layout at cluster
+    size 1 (it owns every queue and every link's pool row) with no rows
+    or paths in shared memory.  A larger cluster needs less, and rows
+    and paths go there only where they fit."""
+    return 4 * smem_words(S=n_queues, L=n_links, NSW=n_switches, V=n_vcs,
+                          K=1, H=0, q_cap=n_queues, flow_cap=0, rows_cap=0,
+                          pool_cap=n_links, push_rows=False,
+                          stage_paths=False)
+
+
+def slices(n: int, c: int) -> list[int]:
+    """Starts of the c equal slices of n items, and n (``slice`` in the
+    source): rank i owns [out[i], out[i + 1])."""
+    return [n * i // c for i in range(c + 1)]
+
+
+def cluster_size(R: int, F: int, n_sm: int = N_SM) -> int:
+    """CTAs a run gets before the residency check: the SMs a run would
+    have to itself, at most ``MEGA_MAX_CLUSTER`` and at most the CTAs
+    its F flows fill (``MEGA_THREADS`` a CTA): a cluster barrier costs
+    more than a CTA's (measured, PERF.md), so a run whose flows fit one
+    CTA stays one CTA."""
+    return min(MEGA_MAX_CLUSTER, max(1, n_sm // max(R, 1)),
+               max(1, -(-F // MEGA_THREADS)))
+
+
+class MegaGeometry(NamedTuple):
+    """One batch's launch geometry (``mega_geometry``)."""
+
+    cluster: int          # CTAs a run (cluster size c)
+    q_cap: int            # queues the largest slice owns (V x wires)
+    flow_cap: int         # flows the largest slice owns
+    rows_cap: int         # incidence rows of the largest queue slice
+    pool_cap: int         # pool rows of the largest switch slice
+    push_rows: bool       # flows push channel rows into their owners
+    stage_paths: bool     # paths staged in shared memory
+    smem_bytes: int       # dynamic shared memory a CTA
+
+
+def mega_geometry(R: int, F: int, K: int, H: int, L: int, V: int,
+                  NSW: int, red_off: np.ndarray, pool_off: np.ndarray, *,
+                  n_sm: int = N_SM,
+                  max_active: "Callable[[int, int], int] | None" = None,
+                  cluster: int | None = None) -> MegaGeometry:
+    """The cluster size and the shared memory of a batch.
+
+    ``red_off`` [R, S + 2] and ``pool_off`` [R, NSW + 1] are the runs'
+    CSR offsets (host arrays).  The cluster starts at ``cluster_size``
+    and shrinks while ``max_active(c, smem_bytes)`` (the clusters the
+    card holds at once; None: all of them) is below R, so every run is
+    resident in one wave.  Rank i owns flows, wires (each with its V
+    queues) and switches ``slices(n, c)[i:i + 2]``.  Within
+    ``MEGA_SMEM_CAP``, in this order: the channel rows of its queues are
+    pushed into its shared memory (else gathered from global memory),
+    then its flows' paths are staged (else read there).
+    ``cluster`` forces c (1..``MEGA_MAX_CLUSTER``) and skips the check."""
+    S = L * V
+    red_off = np.asarray(red_off, np.int64).reshape(R, S + 2)
+    pool_off = np.asarray(pool_off, np.int64).reshape(R, NSW + 1)
+    cap_words = MEGA_SMEM_CAP // 4
+    if cluster is not None and not 1 <= cluster <= MEGA_MAX_CLUSTER:
+        raise ValueError(f"use_kernels='mega': cluster {cluster} outside "
+                         f"1..{MEGA_MAX_CLUSTER} (MEGA_MAX_CLUSTER)")
+    c = cluster or cluster_size(R, F, n_sm)
+    while True:
+        fl, ls, ws = slices(F, c), slices(L, c), slices(NSW, c)
+        qs = np.asarray(ls) * V
+        flow_cap = max(b - a for a, b in zip(fl, fl[1:]))
+        q_cap = V * max(b - a for a, b in zip(ls, ls[1:]))
+        rows_cap = int((red_off[:, qs[1:]] - red_off[:, qs[:-1]]).max(
+            initial=0))
+        pool_cap = int((pool_off[:, ws[1:]] - pool_off[:, ws[:-1]]).max(
+            initial=0))
+        kw = dict(S=S, L=L, NSW=NSW, V=V, K=K, H=H, q_cap=q_cap,
+                  flow_cap=flow_cap, rows_cap=rows_cap, pool_cap=pool_cap)
+
+        def fits(**flags):
+            return bool(smem_words(**kw, **flags) <= cap_words)
+
+        push = fits(push_rows=True, stage_paths=False)
+        paths = fits(push_rows=push, stage_paths=True)
+        words = smem_words(**kw, push_rows=push, stage_paths=paths)
+        if words > cap_words:
+            raise ValueError(
+                f"use_kernels='mega': {words * 4} B of shared memory a CTA "
+                f"over MEGA_SMEM_CAP ({MEGA_SMEM_CAP} B)")
+        geo = MegaGeometry(cluster=c, q_cap=int(q_cap), flow_cap=flow_cap,
+                           rows_cap=rows_cap, pool_cap=pool_cap,
+                           push_rows=push, stage_paths=paths,
+                           smem_bytes=4 * words)
+        if c == 1 or cluster or max_active is None or \
+                max_active(c, 4 * words) >= R:
+            return geo
+        c -= 1
 
 
 def check_stages() -> None:
@@ -162,17 +286,50 @@ def check_shape(st, sd, *, n_switches: int, n_vcs: int) -> int:
     return smem
 
 
+def row_positions(red_perm: torch.Tensor, red_off: torch.Tensor, L: int,
+                  V: int, c: int) -> torch.Tensor:
+    """Where each (flow, candidate, hop) row of every run goes in the
+    pushed rows: ``owner << 24 | index`` among the owner's rows, owner
+    the cluster rank whose queue slice holds the row's queue; -1 for the
+    rows of the scratch queue S (PAD hops).  [R, F*K*H] int32."""
+    R, N = red_perm.shape
+    S = L * V
+    dev = red_perm.device
+    pos = torch.empty_like(red_perm)
+    pos.scatter_(1, red_perm, torch.arange(N, device=dev).expand(R, N))
+    starts = red_off[:, [q * V for q in slices(L, c)]]        # [R, c + 1]
+    owner = torch.searchsorted(starts[:, 1:c].contiguous(), pos,
+                               right=True) if c > 1 else torch.zeros_like(pos)
+    local = pos - torch.gather(starts, 1, owner)
+    packed = owner * (1 << 24) + local
+    return torch.where(pos < red_off[:, S:S + 1], packed, -1).to(
+        torch.int32)
+
+
 class MegaPlan(NamedTuple):
-    """Per-run parameter rows of one batch, packed once."""
+    """Per-run parameter rows, int32 tables and the launch geometry of
+    one batch, packed once."""
 
     frow: torch.Tensor        # [R, n_float_row()] f32
     irow: torch.Tensor        # [R, len(INT_ROW)] int32
+    path_q: torch.Tensor      # [R, F, K, H] int32 queue of each hop (S: PAD)
+    path_n: torch.Tensor      # [R, F, K] int32 hop count
+    path_pos: torch.Tensor    # [R, F, K, H] int32 row's owner and place
+    red_rows: torch.Tensor    # [R, F*K*H] int32 ScenarioDev.red_perm
+    pool_rows: torch.Tensor   # [R, L] int32 ScenarioDev.pool_perm
+    geometry: MegaGeometry
 
 
 def mega_plan(par, packed_react: dict, dt: torch.Tensor,
-              window: float = 0.0) -> MegaPlan:
+              window: float = 0.0, *, sd, plan,
+              cluster: int | None = None) -> MegaPlan:
     """Pack ``StepParams`` (+ the packed reaction rows and the trace
-    window length in seconds) into the kernel's two per-run rows."""
+    window length in seconds) into the kernel's two per-run rows, the
+    batch ``sd``'s paths and incidence rows into int32 tables, and
+    choose the launch geometry from its CSR offsets (``plan`` is its
+    ``ReducePlan``, for ``pool_off``).  On a card the geometry's cluster
+    is held to what the card keeps resident at once (``cluster`` forces
+    it, see ``mega_geometry``)."""
     R = par.line_rate.shape[0]
     dev = par.line_rate.device
     src = {"dt": dt.to(torch.float32).expand(R),
@@ -186,8 +343,32 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
     cols += [packed_react[name].to(dev).expand(R, n) for name, n in REACT_ROWS]
     irow = torch.stack([getattr(par, f).to(torch.int32) for f in INT_ROW],
                        dim=1)
+    _, F, K, H = sd.alt_routes.shape
+    L = sd.cap_ext.shape[1] - 1
+    S = sd.red_off.shape[1] - 2
+    V = S // L if L else 1
+    NSW = plan.pool_off.shape[1] - 1
+    rt = sd.alt_routes
+    q = rt if V == 1 else rt * V + sd.vc
+    path_q = torch.where(rt != -1, q, S).to(torch.int32).contiguous()
+    max_active = None
+    n_sm = N_SM
+    if dev.type == "cuda":
+        lib = _lib()
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        max_active = lib.fs_max_clusters
+    geo = mega_geometry(R, F, K, H, L, V, NSW, sd.red_off.cpu().numpy(),
+                        plan.pool_off.cpu().numpy(), n_sm=n_sm,
+                        max_active=max_active, cluster=cluster)
     return MegaPlan(frow=torch.cat(cols, dim=1).contiguous(),
-                    irow=irow.contiguous())
+                    irow=irow.contiguous(), path_q=path_q,
+                    path_n=sd.alt_hops.to(torch.int32).contiguous(),
+                    path_pos=row_positions(sd.red_perm, sd.red_off, L, V,
+                                           geo.cluster).reshape(
+                                               rt.shape).contiguous(),
+                    red_rows=sd.red_perm.to(torch.int32).contiguous(),
+                    pool_rows=sd.pool_perm.to(torch.int32).contiguous(),
+                    geometry=geo)
 
 
 def _state_leaves(st):
@@ -196,7 +377,7 @@ def _state_leaves(st):
 
 
 def _launch(name: str, st, sd, plan, mplan: MegaPlan, *, n_switches: int,
-            n_vcs: int, n_substeps: int, block: bool, smem: int):
+            n_vcs: int, n_substeps: int, block: bool):
     from ..core.fluid import FluidState
     dev = st.nicq.device
     if dev.index != torch.cuda.current_device():
@@ -226,13 +407,20 @@ def _launch(name: str, st, sd, plan, mplan: MegaPlan, *, n_switches: int,
     scratch = torch.empty((R, F * H * 4), dtype=f32, device=dev)
     scn = {f: getattr(sd, f).contiguous() for f in (
         "gen_rate", "t_start", "t_stop", "volume", "cap_ext", "nic_buffer",
-        "jitter", "sink_ext", "rtt", "alt_routes", "alt_hops", "vc",
-        "red_perm", "red_off", "pool_perm")}
+        "jitter", "sink_ext", "rtt", "red_off")}
+    geo = mplan.geometry
     args = MegaArgs(
         R=R, F=F, H=H, K=K, L=L, V=V, S=L * V, D=D, NSW=int(n_switches),
         n_substeps=int(n_substeps), block=int(block),
         nfp=mplan.frow.shape[1], nip=mplan.irow.shape[1],
+        cluster=geo.cluster, q_cap=geo.q_cap, flow_cap=geo.flow_cap,
+        rows_cap=geo.rows_cap, pool_cap=geo.pool_cap,
+        stage_paths=int(geo.stage_paths),
         fpar=mplan.frow.data_ptr(), ipar=mplan.irow.data_ptr(),
+        path_q=mplan.path_q.data_ptr(), path_n=mplan.path_n.data_ptr(),
+        red_rows=mplan.red_rows.data_ptr(),
+        path_pos=mplan.path_pos.data_ptr(), push_rows=int(geo.push_rows),
+        pool_rows=mplan.pool_rows.data_ptr(),
         pool_off=plan.pool_off.data_ptr(),
         st_in=(_P * _N)(*[x.data_ptr() for x in ins]),
         st_out=(_P * _N)(*[x.data_ptr() for x in outs]),
@@ -240,12 +428,13 @@ def _launch(name: str, st, sd, plan, mplan: MegaPlan, *, n_switches: int,
         **{k: v.data_ptr() for k, v in scn.items()},
         **{f"tr_{k}": v.data_ptr() for k, v in tr.items()})
     lib = _lib()
-    err = lib.fs_mega(ctypes.byref(args), smem,
+    err = lib.fs_mega(ctypes.byref(args), geo.smem_bytes,
                       torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.fs_error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
+    GEOMETRY[name] = geo
     vals = dict(zip(STATE_LEAVES, outs))
     new = FluidState(**{f: vals[f] for f in FluidState._fields
                         if f != "cc"},
@@ -266,7 +455,7 @@ def megastep(st, sd, par, plan, mplan: MegaPlan, *, body, n_switches: int,
     version, run on CPU tensors); ``plan`` the batch's ``ReducePlan``
     (its ``pool_off`` CSR), ``mplan`` its packed rows (``mega_plan``).
     """
-    smem = _check(st, sd, n_switches, n_vcs)
+    _check(st, sd, n_switches, n_vcs)
     if st.nicq.device.type == "cpu":
         return body(st)
     if st.nicq.device.type != "cuda":
@@ -274,7 +463,7 @@ def megastep(st, sd, par, plan, mplan: MegaPlan, *, body, n_switches: int,
                          f"{st.nicq.device}")
     from ..core.fluid import StepTrace
     new, tr = _launch("megastep", st, sd, plan, mplan, n_switches=n_switches,
-                      n_vcs=n_vcs, n_substeps=1, block=False, smem=smem)
+                      n_vcs=n_vcs, n_substeps=1, block=False)
     return new, StepTrace(delivered=new.delivered, rate=new.rate, **tr)
 
 
@@ -288,7 +477,7 @@ def megastep_block(st, sd, par, plan, mplan: MegaPlan, *, body,
     and folds the window with ``acc_init`` / ``acc_update`` /
     ``make_sample`` (the host scan's own functions; ``make_sample(st,
     d0, acc)``)."""
-    smem = _check(st, sd, n_switches, n_vcs)
+    _check(st, sd, n_switches, n_vcs)
     if st.nicq.device.type == "cpu":
         d0 = st.delivered
         acc = acc_init(st, n_vcs)
@@ -302,5 +491,5 @@ def megastep_block(st, sd, par, plan, mplan: MegaPlan, *, body,
     from ..core.simulator import TraceSample
     new, tr = _launch("megastep_block", st, sd, plan, mplan,
                       n_switches=n_switches, n_vcs=n_vcs,
-                      n_substeps=n_substeps, block=True, smem=smem)
+                      n_substeps=n_substeps, block=True)
     return new, TraceSample(delivered=new.delivered, rate=new.rate, **tr)

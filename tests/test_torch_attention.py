@@ -7,6 +7,10 @@ reference's Pallas kernels (interpret mode) and to its untiled oracles
 seed, at the reference's own tolerances (``tests/test_kernels.py``):
 atol = rtol = 3e-5 in float32, 2e-2 in bfloat16.
 
+``decode_plan`` (the split kernel's launch geometry) is checked at
+every shape the port decodes at, and a numpy model of the kernel's
+tiling and merge is held to the reference's oracle.
+
 The CUDA kernels run only on a card: the ``cuda``-marked tests hold
 each against its plain version there and skip elsewhere.
 """
@@ -172,6 +176,154 @@ def test_decode_ring_mask_single_survivor():
     want = np.repeat(v[0, 17], h // kv, 0).reshape(1, h, d)
     np.testing.assert_allclose(_f32(got), want, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(_f32(got), _f32(kern), atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: the split kernel's launch plan and its tiling
+# ---------------------------------------------------------------------------
+
+def _plan_shapes():
+    """(b, s, h, kv, d) the port decodes at: every config and smoke
+    config (4 slots, its own head shape), the serve cell's global and
+    local caches, DECODE_CASES and the tiling edges chip_smoke holds."""
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    shapes = {(4, 4352, 32, 16, 128), (4, 4096, 32, 16, 128),
+              (2, 4352, 32, 16, 128), (1, 1, 8, 8, 64)}
+    for a in ARCHS:
+        for c in (get_config(a), get_smoke_config(a)):
+            shapes.add((4, 128 if c is get_smoke_config(a) else 4096,
+                        c.n_heads, c.n_kv_heads, c.head_dim))
+    shapes |= {case[:5] for case in DECODE_CASES}
+    shapes |= {(2, 67, 2 * grp, 2, d) for d in (8, 32, 64, 128, 256)
+               for grp in (1, 2, 4, 8)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_plan_covers_every_key_once(dtype):
+    """At every shape: the lanes of a warp take each 16-byte chunk of a
+    row once, the tiles of a split and the splits take each key once,
+    the units take each (batch, query head) once, and no CTA needs
+    shared memory past the card's 232,448 B."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    for b, s, h, kv, d in _plan_shapes():
+        pl = DA.decode_plan(b, s, h, kv, d, dtype)
+        g = h // kv
+        assert g % pl.gc == 0 and pl.gc in (1, 2, 4)
+        nch = -(-d * esize // 16)
+        assert pl.lpr & (pl.lpr - 1) == 0 and pl.lpr <= 32
+        chunks = sorted(lig + c * pl.lpr for lig in range(pl.lpr)
+                        for c in range(pl.vpl))
+        assert chunks[:nch] == list(range(nch))      # each chunk once
+        assert pl.tile == pl.rows * 32 // pl.lpr
+        assert pl.keys_per_split % pl.tile == 0
+        seen = np.zeros(s, int)
+        for sp in range(pl.nsplit):
+            k0, k1 = sp * pl.keys_per_split, min(s, (sp + 1)
+                                                 * pl.keys_per_split)
+            for t0 in range(k0, k1, pl.tile):
+                for r in range(pl.rows):
+                    for grp in range(32 // pl.lpr):
+                        key = t0 + r * (32 // pl.lpr) + grp
+                        if key < k1:
+                            seen[key] += 1
+        assert (seen == 1).all(), (b, s, h, kv, d)
+        assert pl.units == b * pl.nsplit * kv * (g // pl.gc)
+        assert pl.ctas * DA.WARPS_PER_CTA >= pl.units
+        assert pl.part_rows == b * h * pl.nsplit
+        assert pl.smem_bytes <= 232_448
+
+
+def test_decode_plan_fills_the_card_at_the_serve_shape():
+    """The serve cell's 64 (batch, kv head) pairs are split so the units
+    fill 132 SMs x 16 resident warps in one wave, to within the rounding
+    of a split to the tile; the merge's split weights fit 8.5 KB."""
+    want = DA.N_SM * DA.CTAS_PER_SM * DA.WARPS_PER_CTA
+    for s in (4352, 4096):
+        pl = DA.decode_plan(4, s, 32, 16, 128, torch.bfloat16)
+        assert (pl.gc, pl.lpr, pl.vpl, pl.tile) == (2, 16, 1, 8)
+        assert 0.9 * want <= pl.units <= want, pl
+        assert pl.ctas <= DA.N_SM * DA.CTAS_PER_SM
+    for shape in _plan_shapes():
+        pl = DA.decode_plan(*shape, torch.float32)
+        b, _, h, kv, _ = shape
+        per_split = b * kv * (h // kv // pl.gc)
+        assert pl.units <= max(want, per_split), (shape, pl)
+        assert pl.nsplit * 4 <= 8704, (shape, pl)
+
+
+def test_decode_plan_refusals():
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM"):
+        DA.decode_plan(1, 8, 4, 2, 257, torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        DA.decode_plan(1, 8, 6, 4, 64, torch.float32)
+
+
+def _decode_model(q, k, v, valid, plan, *, softcap, scale):
+    """numpy model of csrc/decode_attention.cu at float64: each unit's
+    online softmax tile by tile (a tile with no valid slot skipped, one
+    max and one rescale a tile), its partial (m, l, acc), then the merge
+    in split order with acc / max(l, 1e-30)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    neg = -1e30
+    part_m = np.full((b, h, plan.nsplit), neg)
+    part_l = np.zeros((b, h, plan.nsplit))
+    part_a = np.zeros((b, h, plan.nsplit, d))
+    for bb in range(b):
+        for hh in range(h):
+            kh = hh // g
+            for sp in range(plan.nsplit):
+                k0 = sp * plan.keys_per_split
+                k1 = min(s, k0 + plan.keys_per_split)
+                m, l, acc = neg, 0.0, np.zeros(d)
+                for t0 in range(k0, k1, plan.tile):
+                    keys = np.arange(t0, min(t0 + plan.tile, k1))
+                    ok = valid[bb, keys]
+                    if not ok.any():
+                        continue
+                    x = k[bb, keys, kh].astype(np.float64) @ q[bb, hh] * scale
+                    if softcap > 0:
+                        x = np.tanh(x / softcap) * softcap
+                    m_new = max(m, x[ok].max())
+                    corr = 1.0 if m == neg else np.exp(m - m_new)
+                    p = np.where(ok, np.exp(x - m_new), 0.0)
+                    acc = acc * corr + p @ v[bb, keys, kh]
+                    l, m = l * corr + p.sum(), m_new
+                part_m[bb, hh, sp], part_l[bb, hh, sp] = m, l
+                part_a[bb, hh, sp] = acc
+    top = part_m.max(-1, keepdims=True)
+    w = np.where(part_m == neg, 0.0, np.exp(part_m - top))
+    den = np.maximum((part_l * w).sum(-1), 1e-30)
+    return (part_a * w[..., None]).sum(-2) / den[..., None]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,cap", [
+    (2, 77, 8, 2, 64, 50.0),        # a ragged last tile and split
+    (1, 300, 8, 1, 32, 0.0),        # g = 8 in two head chunks
+    (2, 130, 4, 4, 256, 5.0),       # g = 1, two chunks a lane in f32
+])
+def test_decode_tiling_model_matches_reference(b, s, h, kv, d, cap):
+    """The kernel's tiling and merge, modelled in numpy, against the
+    reference's untiled oracle: a whole tile invalid, a split with no
+    valid slot (its partial merges with weight 0) and, for batch row 1
+    of the first case, no valid slot at all (the kernel's 0)."""
+    q, k, v, valid = _decode_inputs(s + d, b, s, h, kv, d)
+    plan = DA.decode_plan(b, s, h, kv, d, torch.float32)
+    valid[:, plan.tile:2 * plan.tile] = False
+    valid[:, plan.keys_per_split:2 * plan.keys_per_split] = False
+    empty = b > 1 and s == 77
+    if empty:
+        valid[1] = False
+    scale = 1.0 / np.sqrt(d)
+    got = _decode_model(q, k, v, valid, plan, softcap=cap, scale=scale)
+    want = _f32(ref_R.decode_attention_ref(*_j(q, k, v), jnp.asarray(valid),
+                                           softcap=cap))
+    keep = slice(0, 1) if empty else slice(None)
+    np.testing.assert_allclose(got[keep], want[keep], **F32)
+    if empty:
+        assert not got[1].any()
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +561,30 @@ def test_decode_kernel_on_cuda():
         torch.cuda.synchronize()
         np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **F32)
     assert DA.LAUNCHES["decode_attention"] == len(DECODE_CASES)
+    # the split kernel's tiling edges: d 8-256, GQA groups 1-8, a cache no
+    # multiple of the tile with its second tile invalid, and batch row 1
+    # with no valid slot (the kernel's 0); the library's tile is the plan's
+    lib = DA._lib()
+    for d in (8, 32, 64, 128, 256):
+        for grp in (1, 2, 4, 8):
+            for dtype, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
+                plan = DA.decode_plan(2, 1, 2 * grp, 2, d, dtype)
+                assert lib.da_tile_keys(int(dtype == torch.bfloat16), d,
+                                        plan.gc) == plan.tile
+                s = 5 * plan.tile + 3
+                q, k, v, valid = _decode_inputs(d + grp, 2, s, 2 * grp, 2, d)
+                valid[:, plan.tile:2 * plan.tile] = False
+                valid[1] = False
+                q, k, v = [x.to(dev) for x in _t(q, k, v, dtype=dtype)]
+                vm = torch.from_numpy(valid).to(dev)
+                got = DA.decode_attention(q, k, v, vm, softcap=50.0)
+                want = DA.decode_attention_plain(q, k, v, vm, softcap=50.0)
+                torch.cuda.synchronize()
+                np.testing.assert_allclose(_f32(got[:1].cpu()),
+                                           _f32(want[:1].cpu()), **tol)
+                assert not got[1].any()
+                assert torch.equal(got, DA.decode_attention(
+                    q, k, v, vm, softcap=50.0))
 
 
 @pytest.mark.cuda
