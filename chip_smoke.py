@@ -53,7 +53,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
                beside the tensor bound; decode by CUDA-graph replay, two
                launches bitwise equal), flex_attention at softcap 50 and
                ``scaled_dot_product_attention`` at softcap 0; the
-               CUDA-core route timed at serve_f32's float32 prefill;
+               CUDA-core route timed at serve_f32's float32 prefill
+               (global and local layer, flex and SDPA beside it, two
+               launches bitwise equal) and at recurrentgemma-9b's bf16
+               local attention (d 256); the largest error of each route
+               and dtype;
  10. serve   — gemma2-27b at full width and depth in bfloat16 (random
                weights from seed 0 on the card): 8 ragged prompts of
                4100-4200 tokens on 4 slots, 16 new tokens each, through
@@ -65,7 +69,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
                decode logits against the plain path;
  11. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
                global) in float32: greedy tokens equal to the plain path,
-               every flash launch on the CUDA-core route;
+               every flash launch on the CUDA-core route; time to first
+               token and seconds a prefill call on both paths;
  12. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
                card and on the CPU: equal tokens (CUDA-core route); the
                serving launcher's ``--smoke`` run on the card.
@@ -132,12 +137,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _kmod(name: str):
+    """The port's module ``repro_torch.kernels.<name>`` (the package binds
+    the attention functions, not their modules, under those names)."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
 def _kernel_modules():
-    from repro_torch.kernels import (cc_step, decode_attention,
-                                     flash_attention, fluid_reduce,
-                                     fluid_step)
-    return (cc_step, fluid_reduce, fluid_step, flash_attention,
-            decode_attention)
+    return tuple(_kmod(n) for n in ("cc_step", "fluid_reduce", "fluid_step",
+                                    "flash_attention", "decode_attention"))
 
 
 def reset_counts() -> None:
@@ -167,8 +176,7 @@ def _expect(launches: dict, where: str, *, cc: int = 0, seg: int = 0,
 
 def routes() -> dict:
     """flash_attention's launches by route since ``reset_counts``."""
-    from repro_torch.kernels import flash_attention
-    return dict(flash_attention.ROUTES)
+    return dict(_kmod("flash_attention").ROUTES)
 
 
 def _expect_routes(got: dict, where: str, *, tensor_core: int = 0,
@@ -181,7 +189,7 @@ def _expect_routes(got: dict, where: str, *, tensor_core: int = 0,
 def _flash(q, k, v, **kw):
     """One ``flash_attention`` call, asserting it took the route
     ``_route`` names for q's dtype and head_dim (one launch there)."""
-    from repro_torch.kernels import flash_attention as FA
+    FA = _kmod("flash_attention")
     before = dict(FA.ROUTES)
     out = FA.flash_attention(q, k, v, **kw)
     route = FA._route(q.dtype, q.shape[-1])
@@ -1204,8 +1212,8 @@ def _cap_cases(device, g) -> dict:
     rounds its logits to bf16, which at |logit| ~ 14 is beyond 2e-2 by
     itself (the kernels, like the TPU kernels, keep them in float32)."""
     import torch
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
+    DA = _kmod("decode_attention")
+    FA = _kmod("flash_attention")
     errs, moved = {"flash": {}, "decode": {}}, {}
     for b, t, h, kv, d, window, cap in FLASH_CAP:
         for dt in (torch.float32, torch.bfloat16):
@@ -1244,7 +1252,7 @@ def _cap_cases(device, g) -> dict:
 
 def _flash_edges(device, g) -> dict:
     import torch
-    from repro_torch.kernels import flash_attention as FA
+    FA = _kmod("flash_attention")
     errs = {}
     for b, t, h, kv, d, causal, window, cap in FLASH_EDGE:
         for dt in (torch.float32, torch.bfloat16):
@@ -1277,7 +1285,7 @@ def _flash_edges(device, g) -> dict:
 
 def _decode_edges(device, g) -> dict:
     import torch
-    from repro_torch.kernels import decode_attention as DA
+    DA = _kmod("decode_attention")
     errs = {}
     for b, s, h, kv, d, cap in DECODE_EDGE:
         for dt in (torch.float32, torch.bfloat16):
@@ -1314,7 +1322,7 @@ def _decode_tiling(device, g) -> dict:
     slots (no multiple of the tile), the second tile wholly invalid and
     batch row 1 with no valid slot at all (the kernel's 0 there)."""
     import torch
-    from repro_torch.kernels import decode_attention as DA
+    DA = _kmod("decode_attention")
     errs = {}
     for d in DECODE_TILE_DIMS:
         for grp in DECODE_TILE_GROUPS:
@@ -1383,38 +1391,123 @@ def _flex_call(qT, kT, vT, *, window, valid):
                       scale=GEMMA_SCALE, enable_gqa=True)
 
 
-def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
-    """The CUDA-core route at serve_f32's prefill (2 slots x 4200
-    positions, gemma2's heads, float32, global layer, softcap 50): kernel,
-    plain and flex_attention time, and the float32 bound."""
+#: the CUDA-core route's timed shapes: (name, (b, t, h, kv, d), dtype,
+#: window, softcap, scale).  serve_f32's prefill (2 slots x 4200
+#: positions, gemma2's heads, float32, softcap 50), its global and its
+#: local layer; then recurrentgemma-9b's local attention in bfloat16
+#: (16/1 heads, d 256, window 2048, no softcap), the route's bf16 work at
+#: a real width (ROADMAP Queue 1 item 6)
+CC_SHAPES = [
+    ("global", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", None,
+     GEMMA_CAP, GEMMA_SCALE),
+    ("local", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", 4096,
+     GEMMA_CAP, GEMMA_SCALE),
+    ("recurrentgemma_local_bf16", (2, SERVE_PROMPT[1], 16, 1, 256),
+     "bfloat16", 2048, 0.0, None),
+]
+
+
+def _sdpa_call(qT, kT, vT, *, window, scale):
+    """``scaled_dot_product_attention`` computing the kernels' function at
+    softcap 0 (causal, the window as a boolean mask, GQA) on [b, heads,
+    len, d] tensors.  Timed here only; the port never calls it."""
     import torch
-    from repro_torch.kernels import flash_attention as FA
-    h, kv, d = GEMMA_HEADS
-    b, t = 2, SERVE_PROMPT[1]
-    q = _randn(g, (b, t, h, d), torch.float32, device)
-    k, v = [_randn(g, (b, t, kv, d), torch.float32, device)
-            for _ in range(2)]
-    kw = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
-    _flash(q, k, v, **kw)                                  # the route
-    ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
-    plain_ms = _event_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
-    qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = _flex_call(qT, kT, vT, window=None, valid=None)
-    err = _held(_flash(q, k, v, **kw), lib().transpose(1, 2), "float32",
-                "flex float32 global")
-    lib_ms = _event_ms(lib, 5)
-    fl = _flash_flops(q.shape, t, causal=True, window=None)
-    nbytes = 4 * (q.numel() * 2 + k.numel() + v.numel())
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = fl / FP32_FLOPS * 1e3
-    del q, k, v, qT, kT, vT
-    torch.cuda.empty_cache()
-    cc_errs = [e for tag, e in flash_errs.items() if "cuda_core" in tag]
-    return {"shape": [b, t, h, kv, d], "dtype": "float32",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": lib_ms, "flex_max_abs_err": err,
-            "tflops_per_s": fl / ms / 1e9, "max_abs_err": max(cc_errs)}
+    import torch.nn.functional as F
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=True, scale=scale, enable_gqa=True)
+    pos = torch.arange(qT.shape[2], device=qT.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(
+        qT, kT, vT, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
+    """The CUDA-core route at CC_SHAPES: each shape held against the
+    plain version run in float32 on the same values (the bf16 plain
+    version rounds its logits), with the output's scale (largest and
+    rms |plain|) and the rms error beside the largest error; kernel, plain and library time against the bound at the
+    card's peak for the input dtype (the bf16 shape runs float32 FMAs
+    here, but the card's bf16 rate is what the same work could take).
+    The library: flex_attention where the softcap bites (gemma2's
+    shapes), and scaled_dot_product_attention at softcap 0 with the
+    kernel timed at softcap 0 beside it.  The errors of every CUDA-core
+    case checked in this phase, by dtype."""
+    import torch
+    FA = _kmod("flash_attention")
+    times = {}
+    for name, (b, t, h, kv, d), dt, window, cap, scale in CC_SHAPES:
+        dtype = getattr(torch, dt)
+        q = _randn(g, (b, t, h, d), dtype, device)
+        k, v = [_randn(g, (b, t, kv, d), dtype, device) for _ in range(2)]
+        kw = dict(window=window, softcap=cap, scale=scale)
+        first = _flash(q, k, v, **kw)                      # the route
+        same = bool(torch.equal(first, FA.flash_attention(q, k, v, **kw)))
+        assert same, ("flash_attention cuda_core rerun", name)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        plain_err = _held(first, want, dt, f"plain {dt} {name}")
+        # the output's scale beside the error: the largest |plain| is set
+        # by the first rows (row 0 is v[0]); the rms by the long rows
+        scale_rec = {"plain_max_abs": float(want.abs().max()),
+                     "plain_rms": float(want.square().mean().sqrt()),
+                     "plain_err_rms": float(
+                         (first.float() - want).square().mean().sqrt())}
+        del first, want
+        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
+        plain_ms = _event_ms(
+            lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
+        fl = _flash_flops(q.shape, t, causal=True, window=window)
+        nbytes = q.element_size() * (q.numel() * 2 + k.numel() + v.numel())
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
+        o_ms = fl / peak * 1e3
+        rec = {"shape": [b, t, h, kv, d], "dtype": dt, "window": window,
+               "softcap": cap, "plain_max_abs_err": plain_err,
+               **scale_rec, "peak_flops": peak,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(b_ms, o_ms),
+               "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "bound_share": max(b_ms, o_ms) / ms, "flops": fl,
+               "tflops_per_s": fl / ms / 1e9, "rerun_bitwise_equal": same,
+               "smem_bytes": FA._lib().fa_smem_bytes(d)}
+        qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if cap:
+            lib = _flex_call(qT, kT, vT, window=window, valid=None)
+            rec["flex_max_abs_err"] = _held(
+                _flash(q, k, v, **kw), lib().transpose(1, 2), dt,
+                f"flex {dt} {name}")
+            rec["flex_ms"] = _event_ms(lib, 5)
+            rec["kernel_faster_than_flex"] = ms <= rec["flex_ms"]
+        lib = _sdpa_call(qT, kT, vT, window=window, scale=scale)
+        kw0 = dict(kw, softcap=0.0)
+        # SDPA's float32 backends may multiply in TF32: it is held to the
+        # bf16 bound, as the same function, not as a second oracle
+        rec["sdpa_softcap0_max_abs_err"] = _held(
+            _flash(q, k, v, **kw0), lib().transpose(1, 2), "bfloat16",
+            f"sdpa {dt} {name}")
+        rec["sdpa_softcap0_ms"] = _event_ms(lib, 3)
+        rec["kernel_softcap0_ms"] = _event_ms(
+            lambda: FA.flash_attention(q, k, v, **kw0), 3)
+        times[name] = rec
+        del q, k, v, qT, kT, vT, lib
+        torch.cuda.empty_cache()
+    by_dtype = {}
+    for tag, e in flash_errs.items():
+        if "cuda_core" in tag:
+            key = "bfloat16" if "bfloat16" in tag else "float32"
+            by_dtype[key] = max(by_dtype.get(key, 0.0), e)
+    for rec in times.values():
+        by_dtype[rec["dtype"]] = max(by_dtype.get(rec["dtype"], 0.0),
+                                     rec["plain_max_abs_err"])
+    top = times["global"]
+    return {"times": times, "dtype": "float32",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["flex_ms"],
+            "max_abs_err": by_dtype["float32"],
+            "max_abs_err_by_dtype": by_dtype}
 
 
 def phase_attention(device) -> dict:
@@ -1424,8 +1517,8 @@ def phase_attention(device) -> dict:
     the same function) and, at softcap 0, scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
+    DA = _kmod("decode_attention")
+    FA = _kmod("flash_attention")
     g = torch.Generator(device=device).manual_seed(9)
     flash_errs = _flash_edges(device, g)
     decode_errs = _decode_edges(device, g)
@@ -1471,17 +1564,9 @@ def phase_attention(device) -> dict:
     # scaled_dot_product_attention computes the same function at softcap
     # 0 (boolean mask, GQA): time it beside the kernel at softcap 0
     qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pos = torch.arange(t, device=device)
-    local_mask = ((pos[None, :] <= pos[:, None])
-                  & (pos[None, :] > pos[:, None] - 4096))
     sdpa = {}
-    for layer, window, lib in (
-            ("global", None, lambda: F.scaled_dot_product_attention(
-                qT, kT, vT, is_causal=True, scale=GEMMA_SCALE,
-                enable_gqa=True)),
-            ("local", 4096, lambda: F.scaled_dot_product_attention(
-                qT, kT, vT, attn_mask=local_mask, scale=GEMMA_SCALE,
-                enable_gqa=True))):
+    for layer, window in (("global", None), ("local", 4096)):
+        lib = _sdpa_call(qT, kT, vT, window=window, scale=GEMMA_SCALE)
         kw = dict(window=window, scale=GEMMA_SCALE)
         err = _held(_flash(q, k, v, **kw),
                     lib().transpose(1, 2), "bfloat16", f"sdpa {layer}")
@@ -1504,7 +1589,7 @@ def phase_attention(device) -> dict:
                     "route": "tensor_core", "softcap": GEMMA_CAP,
                     "sm_clock_mhz": clock_mhz, "sms": sms, "times": times,
                     "flex_softcap50": flex, "sdpa_softcap0": sdpa}
-    del q, k, v, qT, kT, vT, local_mask
+    del q, k, v, qT, kT, vT, lib
     torch.cuda.empty_cache()
     tc_errs = [e for tag, e in flash_errs.items() if "tensor_core" in tag]
     rows["flash_attention"] = {
@@ -1516,6 +1601,12 @@ def phase_attention(device) -> dict:
         "max_abs_err": max(tc_errs)}
     rec["flash_cuda_core"] = rows["flash_attention_cuda_core"] = \
         _flash_cuda_core(device, g, flash_errs)
+    worst = {}
+    for tag, e in flash_errs.items():
+        route = "tensor_core" if "tensor_core" in tag else "cuda_core"
+        key = f"{route} {'bfloat16' if 'bfloat16' in tag else 'float32'}"
+        worst[key] = max(worst.get(key, 0.0), e)
+    rec["flash_max_abs_err_by_route_dtype"] = worst
     # decode at a step of the serve cell: 4 slots, global cache of 4352
     # slots (4215 valid) and a full local ring of 4096
     times, sdpa, flex = {}, {}, {}
@@ -1885,22 +1976,27 @@ def phase_serve_f32(device) -> dict:
     params = init_params(T.param_defs(cfg), 0, torch.float32, device=device)
     sv = ServeConfig(batch_slots=2, max_len=SERVE_MAX_LEN, eos_token=-1)
     prompts = _prompts(cfg.vocab, 4, *SERVE_PROMPT, seed=1)
-    outs, launches, by_route = {}, {}, {}
+    outs, launches, by_route, timing = {}, {}, {}, {}
     for path, c in (("kernels", cfg),
                     ("plain", dataclasses.replace(cfg, use_pallas=False))):
         eng = ServingEngine(c, params, sv, device=device)
         calls = _timed(eng)
+        torch.cuda.synchronize()
         reset_counts()
+        t0 = time.perf_counter()
         outs[path] = eng.generate(prompts, max_new_tokens=8)
         launches[path], by_route[path] = counts(), routes()
         n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
+        # each prefill call: 2 slots x ~4200 positions, 2 layers
+        timing[path] = {"ttft_s": calls["prefill"][0][2] - t0,
+                        "prefill_s": [c_[0] for c_ in calls["prefill"]]}
         del eng
         torch.cuda.empty_cache()
     cmp = _kernel_vs_plain(params, cfg, prompts[0], device, "cuda_core")
     rec = {"phase": "serve_f32", "layers": cfg.n_layers, "requests": 4,
            "slots": 2, "new_tokens": 8, "tokens_equal":
            outs["kernels"] == outs["plain"], "tokens": outs["kernels"],
-           "launches": launches, "routes": by_route,
+           "launches": launches, "routes": by_route, "timing": timing,
            "kernel_vs_plain_batch1": cmp,
            "logit_rtol": SERVE_F32_LOGIT_RTOL}
     emit(rec)

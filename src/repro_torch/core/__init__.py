@@ -5,7 +5,7 @@ Public surface (as the reference's, for the ported slice):
   * cc:          the MARKING / NOTIFICATION / REACTION stage registries
   * topology / routing: the CLOS builders and the link incidence
   * fluid:       Scenario / FluidState / fluid_step / make_step_fn
-  * simulator:   run / SimResult
+  * simulator:   run / run_all_schemes / SimResult
   * experiments: ScenarioSpec / Sweep / SweepResult / config_grid
   * scenarios / workloads: the reference's host-side builders
 """
@@ -21,7 +21,7 @@ from .fluid import (FluidState, Scenario, ScenarioDev, StepParams,
                     delay_depth, dense_reduce_rows, fluid_step,
                     init_state, make_step_fn, scenario_device,
                     step_params)
-from .simulator import SimResult, run
+from .simulator import SimResult, run, run_all_schemes
 from .experiments import (ScenarioSpec, Sweep, SweepResult, config_grid,
                           pad_scenario, stack_scenarios, trim_final)
 from .scenarios import (PAPER_FLOW_NAMES, collective_flows, incast,
@@ -39,6 +39,7 @@ __all__ = [
     "FluidState", "Scenario", "ScenarioDev", "StepParams", "delay_depth",
     "dense_reduce_rows", "fluid_step", "init_state", "make_step_fn",
     "scenario_device", "step_params", "SimResult", "run",
+    "run_all_schemes",
     "ScenarioSpec", "Sweep", "SweepResult", "config_grid",
     "pad_scenario", "stack_scenarios", "trim_final", "PAPER_FLOW_NAMES",
     "collective_flows", "incast", "paper_incast", "paper_incast_volume",

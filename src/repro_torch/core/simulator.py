@@ -23,7 +23,7 @@ from .fluid import (FluidState, Scenario, _step_body, check_routing_paths,
                     dense_reduce_rows, init_state, kernel_tier,
                     make_step_fn, reduce_plan, refuse_unported,
                     resolve_device, scenario_device, step_params)
-from .params import CCConfig
+from .params import CCConfig, CCScheme
 
 
 class TraceSample(NamedTuple):
@@ -413,3 +413,15 @@ def run(scn: Scenario, cfg: CCConfig, n_steps: int | None = None,
                          t=fin.t[0]),
         ctrl=tr.ctrl, trace_every=k, pause_time=tr.pause_time,
         vc_stall=tr.vc_stall)
+
+
+def run_all_schemes(scn: Scenario, cfg: CCConfig,
+                    n_steps: int | None = None, *,
+                    device=None) -> dict[str, SimResult]:
+    """The scheme ablation (PFC_ONLY, DCQCN, DCQCN_REV under ``cfg``'s
+    other settings) as one 3-point ``Sweep``; ``device`` as in ``run``."""
+    from .experiments import Sweep
+    schemes = (CCScheme.PFC_ONLY, CCScheme.DCQCN, CCScheme.DCQCN_REV)
+    sweep = Sweep([(s.name, cfg.replace(scheme=s), scn) for s in schemes])
+    res = sweep.run(n_steps=n_steps, device=device)
+    return {s.name: res[s.name] for s in schemes}

@@ -52,16 +52,51 @@
 //   about 2^-11; the error it adds is measured by chip_smoke at caps 2,
 //   5 and 50 against the 2e-2 bound.
 //
-// * CUDA cores (fa_flash_attention): float32 at any d (TF32 wgmma would
-//   break the 3e-5 float32 bound) and bfloat16 at d outside {64, 128}
-//   (the smoke configs' 8-16, the edge shapes' 32, recurrentgemma's 256,
-//   whose O accumulator would take 128 registers a thread).  One CTA of
-//   256 threads takes 64 rows; each thread owns a 4 x 4 micro-tile of
-//   the 64 x 64 logit tile and a 4 x NC micro-tile of the 64 x d
-//   accumulator, fed from float32 tiles in shared memory, with explicit
-//   fmaf so the build's -fmad=false does not split the multiply-adds,
-//   and tanhf per logit.  It is far from its bound: the numbers are in
-//   PERF.md.
+// * CUDA cores (fa_flash_attention): float32 at any d (one-pass TF32
+//   wgmma would break the 3e-5 float32 bound; the 3xTF32 split would
+//   triple the operand tiles and leave no room for a ring) and bfloat16
+//   at d outside {64, 128} (the smoke configs' 8-16, the edge shapes'
+//   32, recurrentgemma's 256).  Bound on this card: float32 operations,
+//   4 * visible pairs * h * d flops at 67 TFLOP/s (128 FMA lanes an SM);
+//   the bytes are 6-7x below that at serve_f32's prefill.  So the design
+//   keeps the FMA pipe fed and spends few other instructions:
+//   - One CTA of NT = 256 threads takes BR folded rows (128, or 64 at
+//     d 256) and keeps them for the whole walk: Q, a ring of RING = 3
+//     K/V slots of BK keys and the P tile live in shared memory as
+//     float32 rows padded by 4 floats (an odd count of 16-byte chunks a
+//     row, so the 16-byte loads of consecutive rows hit distinct banks).
+//     The ring holds K_j, V_j and the next tile's K or V: K_{j+1} is
+//     issued before S_j = Q K_j^T is computed, V_{j+1} into K_j's slot
+//     before O += P V_j, each with 16-byte cp.async.cg (float32 at d % 4
+//     == 0; rows past s zero-filled) one commit group apart, so loads
+//     overlap both products.  bfloat16 (and ragged float32) tiles take
+//     the same slots through registers, converted to float32 on the way.
+//   - Both products are register tiled, with operands read as float4
+//     along the contiguous dimension (no transposed copies): a thread
+//     holds TR rows x TK keys of S (rows rg + RG*i, keys kg + KG*j) and
+//     TR rows x TC columns of O (16-byte chunks kg + KG*jc).  A warp's
+//     load touches at most 8 distinct 16-byte chunks of Q, K or P rows
+//     (4 rows x 8 keys of S at d 128) or 128 contiguous bytes of a V row,
+//     so it is one bank wavefront, against 128 FMAs a d-chunk in S and
+//     256 a key-quad in O.  Every multiply-add is an explicit fmaf (the
+//     build's -fmad=false would split a*b + c in two).
+//   - One block of 8 warps an SM at d 128 (203,776 B of shared memory,
+//     TR*TK + TR*TC = 96 accumulators a thread), 1-2 at the narrower
+//     buckets; the ring, not a second block, hides the loads (two blocks
+//     of half the rows measured slower: their smaller register tiles
+//     cost more than the extra warps hide).  What is left is latency:
+//     at 8 warps the products wait on their shared loads, and the
+//     softmax phase (tanhf, exp2f) runs between the barriers, not beside
+//     the products (PERF.md).
+//   - Per logit: one multiply by scale / cap (a reciprocal formed on the
+//     host, no division), the softcap's tanhf (libdevice, about 2 ulp; on
+//     the card it measured faster than an exp2f-and-fast-divide form and
+//     half its error), one multiply by cap * log2 e, and the softmax in
+//     log2 units with exp2f.  Masks are evaluated only in tiles that
+//     cross the diagonal, the window's edge or s.
+//   - Heavy causal q blocks launch first, as on the tensor-core route.
+//   Head dims are bucketed (Tile<DB>, DB = 16, 32, 64, 128, 256); a
+//   ragged d is zero-padded in shared memory to its bucket.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,196 +106,386 @@
 
 namespace {
 
-constexpr int BR = 64;    // query rows per CTA
-constexpr int BK = 64;    // keys per kv tile
-constexpr int NT = 256;   // threads: a 16 x 16 grid of micro-tiles
+constexpr int NT = 256;           // threads a CTA
+constexpr int RING = 3;           // K/V slots: K_j, V_j, the next K or V
 constexpr float NEG_INF = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile shape of a head-dim bucket DB: a thread owns TR rows x TK keys of
+// the logit tile and TR rows x TC columns of the output; KG threads (one
+// row group, adjacent lanes) share a row.  So BR = NT / KG * TR rows a
+// CTA, BK = KG * TK keys a tile, and DB = KG * TC.
+template <int DB> struct Tile;
+template <> struct Tile<16> {
+  static constexpr int TR = 2, TK = 8, TC = 4, KG = 4;
+};
+template <> struct Tile<32> {
+  static constexpr int TR = 4, TK = 8, TC = 4, KG = 8;
+};
+template <> struct Tile<64> {
+  static constexpr int TR = 4, TK = 8, TC = 8, KG = 8;
+};
+template <> struct Tile<128> {
+  static constexpr int TR = 4, TK = 8, TC = 16, KG = 8;
+};
+template <> struct Tile<256> {
+  static constexpr int TR = 4, TK = 2, TC = 16, KG = 16;
+};
+
+template <int DB> struct Geo {
+  static constexpr int KG = Tile<DB>::KG, RG = NT / KG;
+  static constexpr int BR = RG * Tile<DB>::TR, BK = KG * Tile<DB>::TK;
+  static constexpr int QS = DB + 4, PS = BK + 4;   // padded row strides
+  // dynamic shared memory in floats: Q, the K/V ring, P
+  static constexpr int SMEM_FLOATS = BR * QS + RING * BK * QS + BR * PS;
+  static_assert(KG * Tile<DB>::TC == DB && Tile<DB>::TC % 4 == 0, "bucket");
+  static_assert(RG * KG == NT && 32 % KG == 0, "row groups");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// floats of dynamic shared memory for head dim D
-__host__ __device__ constexpr long long smem_floats(int D) {
-  return 2LL * BR * (D + 1)            // Qs [BR][D+1], Vs [BK][D+1]
-         + (long long)D * (BK + 1)     // Kt [D][BK+1]
-         + (long long)BR * (BK + 1);   // Ps [BR][BK+1]
+// One 16-byte chunk (4 floats) of a shared row from the n <= 4 elements
+// at src (zeros where !valid or past n).  float32 whole chunks (vec) go
+// by cp.async, the rest through registers.
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       const float* base, bool valid, int n,
+                                       bool vec) {
+  if (vec) {
+    cp_async16(dst, valid ? src : base, valid);
+    return;
+  }
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (valid) {
+    x.x = src[0];
+    if (n > 1) x.y = src[1];
+    if (n > 2) x.z = src[2];
+    if (n > 3) x.w = src[3];
+  }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       const __nv_bfloat16*, bool valid,
+                                       int n, bool vec) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (valid && vec) {              // 4 bf16 = one 8-byte load
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    x = make_float4(a.x, a.y, b.x, b.y);
+  } else if (valid) {
+    x.x = to_f(src[0]);
+    if (n > 1) x.y = to_f(src[1]);
+    if (n > 2) x.z = to_f(src[2]);
+    if (n > 3) x.w = to_f(src[3]);
+  }
+  *reinterpret_cast<float4*>(dst) = x;
 }
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void store4(float* dst, float4 x, int n,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = x;
+    return;
+  }
+  dst[0] = x.x;
+  if (n > 1) dst[1] = x.y;
+  if (n > 2) dst[2] = x.z;
+  if (n > 3) dst[3] = x.w;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x, int n,
+                                       bool) {
+  dst[0] = __float2bfloat16_rn(x.x);
+  if (n > 1) dst[1] = __float2bfloat16_rn(x.y);
+  if (n > 2) dst[2] = __float2bfloat16_rn(x.z);
+  if (n > 3) dst[3] = __float2bfloat16_rn(x.w);
+}
+
+__device__ __forceinline__ float comp(float4 x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// qk_mul = scale / cap with a softcap (y = dot * qk_mul, logit2 =
+// tanh(y) * cap2, cap2 = cap * log2 e), else scale * log2 e (logit2 =
+// dot * qk_mul, cap2 = 0): logits in log2 units.
+template <typename T, int DB>
+__global__ void __launch_bounds__(NT, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int t, int s,
-             int h, int kv, int D, int causal, int window, float softcap,
-             float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* Qs = smem;                    // [BR][DP]
-  float* Vs = Qs + BR * DP;            // [BK][DP]
-  float* Kt = Vs + BK * DP;            // [D][BK + 1]  (transposed)
-  float* Ps = Kt + D * (BK + 1);       // [BR][BK + 1]
+             int h, int kv, int d, int causal, int window, float qk_mul,
+             float cap2) {
+  using G = Geo<DB>;
+  constexpr int TR = Tile<DB>::TR, TK = Tile<DB>::TK;
+  constexpr int TC4 = Tile<DB>::TC / 4, DB4 = DB / 4;
+  constexpr int KG = G::KG, RG = G::RG, BR = G::BR, BK = G::BK;
+  constexpr int QS = G::QS, PS = G::PS;
+  extern __shared__ float4 smem4[];
+  float* const Qs = reinterpret_cast<float*>(smem4);   // [BR][QS]
+  float* const ring = Qs + BR * QS;                     // [RING][BK][QS]
+  float* const Ps = ring + RING * BK * QS;              // [BR][PS]
 
+  const int tid = threadIdx.x, kg = tid % KG, rg = tid / KG;
   const int g = h / kv;
   const int bb = blockIdx.y / kv, kh = blockIdx.y % kv;
   const long long nrows = (long long)t * g;
-  const long long r0 = (long long)blockIdx.x * BR;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  for (int i = tid; i < BR * D; i += NT) {
-    const int r = i / D, dd = i - r * D;
-    const long long R = r0 + r;
-    float x = 0.0f;
-    if (R < nrows) {
-      const long long pos = R / g;
-      const int gi = (int)(R - pos * g);
-      x = to_f(q[((bb * (long long)t + pos) * h + kh * g + gi) * D + dd]);
-    }
-    Qs[r * DP + dd] = x;
-  }
+  // the heaviest q blocks (last positions, most keys) launch first
+  const long long r0 = (long long)(gridDim.x - 1 - blockIdx.x) * BR;
   const long long rlast = (r0 + BR < nrows ? r0 + BR : nrows) - 1;
   const long long qfirst = r0 / g, qlast = rlast / g;
+  const int nc = (d + 3) / 4;         // chunks of a row that hold data
+  const bool vec = d % 4 == 0;        // whole chunks: vector loads
+  // kv tiles [jlo, jhi): stop at the first all-future tile, skip the
+  // tiles entirely behind the window of the first position
+  const int ntiles = (s + BK - 1) / BK;
+  int jhi = ntiles;
+  if (causal && qlast / BK + 1 < jhi) jhi = (int)(qlast / BK + 1);
+  int jlo = 0;
+  if (window >= 0) {
+    const long long x = qfirst - window - BK + 1;
+    if (x >= 0) jlo = (int)(x / BK + 1);
+  }
 
-  long long qpos[4];
-  float m[4], l[4], acc[4][NC];
+  // zeros: the pad columns past d (never written again) and rows past s
+  for (int i = tid; i < G::SMEM_FLOATS / 4; i += NT)
+    smem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+
+  // a thread stages chunk tid % DB4 of every (NT / DB4)-th row of a tile
+  auto stage_kv = [&](const T* src, int j, int slot) {
+    const int c = tid % DB4;
+    if (c >= nc) return;
+    const long long k0 = (long long)j * BK;
+    const long long step = (long long)(NT / DB4) * kv * d;
+    const T* p = src + ((bb * (long long)s + k0 + tid / DB4) * kv + kh) * d
+                 + 4 * c;
+    float* dst = ring + slot * BK * QS + 4 * c;
+    for (int kk = tid / DB4; kk < BK; kk += NT / DB4, p += step)
+      stage4(dst + kk * QS, p, src, k0 + kk < s, d - 4 * c, vec);
+  };
+
+  if (jlo < jhi) {
+    for (int i = tid; i < BR * DB4; i += NT) {
+      const int r = i / DB4, c = i % DB4;
+      if (c >= nc) continue;
+      const long long R = r0 + r;
+      const long long pos = R / g;
+      const int gi = (int)(R - pos * g);
+      stage4(Qs + r * QS + 4 * c,
+             q + (((bb * (long long)t + pos) * h + kh * g + gi) * d + 4 * c),
+             q, R < nrows, d - 4 * c, vec);
+    }
+    stage_kv(k, jlo, 0);
+    cp_async_commit();                  // group: Q + K_jlo
+    stage_kv(v, jlo, 1);
+    cp_async_commit();                  // group: V_jlo
+  }
+
+  int qpos[TR];
+  float m[TR], l[TR];
+  float4 o[TR][TC4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qpos[i] = (r0 + ty + 16 * i) / g;
+  for (int i = 0; i < TR; ++i) {
+    qpos[i] = (int)((r0 + rg + RG * i) / g);
     m[i] = NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < TC4; ++c) o[i][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+  const float4* const Q4 = reinterpret_cast<const float4*>(Qs);
+  const float4* const P4 = reinterpret_cast<const float4*>(Ps);
 
-  const int ntiles = (s + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const long long k0 = (long long)kt * BK;
-    if (causal && k0 > qlast) break;                       // all future
-    if (window >= 0 && k0 + BK - 1 <= qfirst - window) continue;  // behind
-    __syncthreads();                  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int kk = i / D, dd = i - kk * D;
-      const long long key = k0 + kk;
-      float kx = 0.0f, vx = 0.0f;
-      if (key < s) {
-        const long long off = ((bb * (long long)s + key) * kv + kh) * D + dd;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-      }
-      Kt[dd * (BK + 1) + kk] = kx;
-      Vs[kk * DP + dd] = vx;
-    }
+  for (int j = jlo, it = 0; j < jhi; ++j, ++it) {
+    const int slot_k = (2 * it) % RING, slot_v = (2 * it + 1) % RING;
+    // K_j has landed (V_j may be in flight); every thread is past the
+    // previous tile's P V, so V_{j-1}'s slot and P are free
+    cp_async_wait<1>();
     __syncthreads();
+    if (j + 1 < jhi) stage_kv(k, j + 1, (2 * it + 2) % RING);
+    cp_async_commit();                  // group: K_{j+1} (maybe empty)
 
-    float sc[4][4];
+    // S = Q K_j^T over float4 chunks of the head dim
+    const float4* const K4 =
+        reinterpret_cast<const float4*>(ring + slot_k * BK * QS);
+    float sc[TR][TK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-    for (int dd = 0; dd < D; ++dd) {
-      float a[4], b[4];
+      for (int jj = 0; jj < TK; ++jj) sc[i][jj] = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < nc; ++c) {
+      float4 a[TR], b[TK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * DP + dd];
+      for (int i = 0; i < TR; ++i) a[i] = Q4[(rg + RG * i) * (QS / 4) + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Kt[dd * (BK + 1) + tx + 16 * j];
+      for (int jj = 0; jj < TK; ++jj)
+        b[jj] = K4[(kg + KG * jj) * (QS / 4) + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], b[j], sc[i][j]);
+        for (int jj = 0; jj < TK; ++jj) {
+          sc[i][jj] = fmaf(a[i].x, b[jj].x, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].y, b[jj].y, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].z, b[jj].z, sc[i][jj]);
+          sc[i][jj] = fmaf(a[i].w, b[jj].w, sc[i][jj]);
+        }
     }
 
+    // scale, softcap and masks (only where the tile crosses the
+    // diagonal, the window's edge or s), then the online softmax in log2
+    // units; P to shared memory
+    const long long k0 = (long long)j * BK;
+    const bool full = k0 + BK <= s && (!causal || k0 + BK - 1 <= qfirst) &&
+                      (window < 0 || k0 > qlast - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool ok[4];
+    for (int i = 0; i < TR; ++i) {
       float rmax = NEG_INF;
+      unsigned okm = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < s;
-        if (causal) ok[j] = ok[j] && kpos <= qpos[i];
-        if (window >= 0) ok[j] = ok[j] && kpos > qpos[i] - window;
-        float x = sc[i][j] * scale;
-        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
-        sc[i][j] = ok[j] ? x : NEG_INF;
-        rmax = fmaxf(rmax, sc[i][j]);
+      for (int jj = 0; jj < TK; ++jj) {
+        float x = sc[i][jj] * qk_mul;
+        if (cap2 > 0.0f) x = tanhf(x) * cap2;
+        bool ok = true;
+        if (!full) {
+          const long long kpos = k0 + kg + KG * jj;
+          ok = kpos < s && (!causal || kpos <= qpos[i]) &&
+               (window < 0 || kpos > qpos[i] - window);
+        }
+        okm |= (unsigned)ok << jj;
+        sc[i][jj] = ok ? x : NEG_INF;
+        rmax = fmaxf(rmax, sc[i][jj]);
       }
-      // the 16 lanes holding one row share a half-warp (lane = 16*(ty%2)+tx)
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+      for (int off = KG / 2; off > 0; off >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
       const float m_new = fmaxf(m[i], rmax);
-      const float corr = (m[i] == NEG_INF) ? 1.0f : expf(m[i] - m_new);
+      const float corr = m[i] == NEG_INF ? 1.0f : exp2f(m[i] - m_new);
       float rsum = 0.0f;
+      float* const prow = Ps + (rg + RG * i) * PS + kg;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(sc[i][j] - m_new) : 0.0f;
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
+      for (int jj = 0; jj < TK; ++jj) {
+        const float p = (okm >> jj) & 1u ? exp2f(sc[i][jj] - m_new) : 0.0f;
+        prow[KG * jj] = p;
         rsum += p;
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-      l[i] = l[i] * corr + rsum;
+      for (int off = KG / 2; off > 0; off >>= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = fmaf(l[i], corr, rsum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int dd = tx + 16 * c;
-        vv[c] = dd < D ? Vs[kk * DP + dd] : 0.0f;
+      for (int c = 0; c < TC4; ++c) {
+        o[i][c].x *= corr;
+        o[i][c].y *= corr;
+        o[i][c].z *= corr;
+        o[i][c].w *= corr;
       }
+    }
+
+    // V_j has landed (K_{j+1} may be in flight); P is complete and every
+    // thread is past S, so K_j's slot takes V_{j+1}
+    cp_async_wait<1>();
+    __syncthreads();
+    if (j + 1 < jhi) stage_kv(v, j + 1, slot_k);
+    cp_async_commit();                  // group: V_{j+1} (maybe empty)
+
+    // O += P V_j, four keys a step
+    const float4* const V4 =
+        reinterpret_cast<const float4*>(ring + slot_v * BK * QS);
+#pragma unroll 4
+    for (int k4 = 0; k4 < BK / 4; ++k4) {
+      float4 p[TR];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty + 16 * i) * (BK + 1) + kk];
+      for (int i = 0; i < TR; ++i) p[i] = P4[(rg + RG * i) * (PS / 4) + k4];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4* const vrow = V4 + (4 * k4 + kk) * (QS / 4) + kg;
+        float4 w[TC4];
+#pragma unroll
+        for (int c = 0; c < TC4; ++c) w[c] = vrow[KG * c];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float pk = comp(p[i], kk);
+#pragma unroll
+          for (int c = 0; c < TC4; ++c) fma4(o[i][c], pk, w[c]);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long R = r0 + ty + 16 * i;
+  for (int i = 0; i < TR; ++i) {
+    const long long R = r0 + rg + RG * i;
     if (R >= nrows) continue;
     const long long pos = R / g;
     const int gi = (int)(R - pos * g);
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((bb * (long long)t + pos) * h + kh * g + gi) * D;
+    T* const orow = out + ((bb * (long long)t + pos) * h + kh * g + gi) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int dd = tx + 16 * c;
-      if (dd < D) o[dd] = from_f<T>(acc[i][c] / denom);
+    for (int c = 0; c < TC4; ++c) {
+      const int ch = kg + KG * c;
+      if (ch >= nc) continue;
+      const float4 a = o[i][c];
+      store4(orow + 4 * ch,
+             make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom),
+             d - 4 * ch, vec);
     }
   }
 }
 
-template <typename T, int NC>
+template <int DB>
+constexpr long long bucket_smem_bytes() {
+  return (long long)Geo<DB>::SMEM_FLOATS * (long long)sizeof(float);
+}
+
+// dynamic shared memory of the CUDA-core kernel at head dim d
+long long cc_smem_bytes(int d) {
+  return d <= 16 ? bucket_smem_bytes<16>() : d <= 32 ? bucket_smem_bytes<32>()
+       : d <= 64 ? bucket_smem_bytes<64>()
+       : d <= 128 ? bucket_smem_bytes<128>() : bucket_smem_bytes<256>();
+}
+
+template <typename T, int DB>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int t, int s, int h, int kv, int D, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
-  const size_t bytes = (size_t)smem_floats(D) * sizeof(float);
+  using G = Geo<DB>;
+  const int bytes = (int)bucket_smem_bytes<DB>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_kernel<T, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
   const long long nrows = (long long)t * (h / kv);
-  dim3 grid((unsigned)((nrows + BR - 1) / BR), (unsigned)(b * kv));
-  flash_kernel<T, NC><<<grid, NT, bytes, stream>>>(
+  dim3 grid((unsigned)((nrows + G::BR - 1) / G::BR), (unsigned)(b * kv));
+  const float qk_mul = softcap > 0.0f ? scale / softcap : scale * kLog2e;
+  const float cap2 = softcap > 0.0f ? softcap * kLog2e : 0.0f;
+  flash_kernel<T, DB><<<grid, NT, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, t, s, h, kv, D,
-      causal, window, softcap, scale);
+      causal, window, qk_mul, cap2);
   return (int)cudaGetLastError();
 }
 
@@ -268,21 +493,21 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int b,
              int t, int s, int h, int kv, int D, int causal, int window,
              float softcap, float scale, cudaStream_t st) {
-  // NC = accumulator columns per thread: the d columns over 16 lanes
+  // the head-dim bucket: d zero-padded to DB in shared memory
   if (D <= 16)
-    return launch<T, 1>(q, k, v, out, b, t, s, h, kv, D, causal, window,
-                        softcap, scale, st);
+    return launch<T, 16>(q, k, v, out, b, t, s, h, kv, D, causal, window,
+                         softcap, scale, st);
   if (D <= 32)
-    return launch<T, 2>(q, k, v, out, b, t, s, h, kv, D, causal, window,
-                        softcap, scale, st);
+    return launch<T, 32>(q, k, v, out, b, t, s, h, kv, D, causal, window,
+                         softcap, scale, st);
   if (D <= 64)
-    return launch<T, 4>(q, k, v, out, b, t, s, h, kv, D, causal, window,
-                        softcap, scale, st);
+    return launch<T, 64>(q, k, v, out, b, t, s, h, kv, D, causal, window,
+                         softcap, scale, st);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, out, b, t, s, h, kv, D, causal, window,
+    return launch<T, 128>(q, k, v, out, b, t, s, h, kv, D, causal, window,
+                          softcap, scale, st);
+  return launch<T, 256>(q, k, v, out, b, t, s, h, kv, D, causal, window,
                         softcap, scale, st);
-  return launch<T, 16>(q, k, v, out, b, t, s, h, kv, D, causal, window,
-                       softcap, scale, st);
 }
 
 }  // namespace
@@ -812,10 +1037,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // ---- plain C entry points (loaded with ctypes) ---------------------------
 // q [b, t, h, d], k/v [b, s, kv, d], out [b, t, h, d], all contiguous, of
 // one dtype: dtype 0 = float32, 1 = bfloat16.  window < 0 = no window.
-// The caller checks 1 <= d <= fa_max_head_dim() and h % kv == 0, and for
-// the tensor-core route that the tensors are bfloat16, 16-byte aligned
-// and d is 64 or 128.  Launches on the caller's stream; returns the
-// cudaError_t (0 = success) or a negative code of fa_error_string.
+// The caller checks 1 <= d <= fa_max_head_dim(), h % kv == 0 and that
+// the tensors are 16-byte aligned (both routes load 16 bytes at a time),
+// and for the tensor-core route that they are bfloat16 and d is 64 or
+// 128.  Launches on the caller's stream; returns the cudaError_t (0 =
+// success) or a negative code of fa_error_string.  fa_smem_bytes is the
+// CUDA-core kernel's dynamic shared memory at head dim d.
 
 extern "C" int fa_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int dtype, int b, int t, int s,
@@ -849,9 +1076,7 @@ extern "C" int fa_flash_attention_tc(const void* q, const void* k,
 
 extern "C" int fa_max_head_dim() { return 256; }
 
-extern "C" long long fa_smem_bytes(int d) {
-  return smem_floats(d) * (long long)sizeof(float);
-}
+extern "C" long long fa_smem_bytes(int d) { return cc_smem_bytes(d); }
 
 extern "C" const char* fa_error_string(int err) {
   switch (err) {

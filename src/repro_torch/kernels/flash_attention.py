@@ -36,8 +36,9 @@ LAUNCHES = {"flash_attention": 0}
 #: the same launches by route (``_route``)
 ROUTES = {"tensor_core": 0, "cuda_core": 0}
 
-#: the largest head_dim the kernels take: the CUDA-core kernel holds a
-#: 64-row Q, K and V tile of float32 at this width in shared memory
+#: the largest head_dim the kernels take: the CUDA-core kernel's widest
+#: bucket holds 64 rows of Q, three 32-key K/V slots and P in float32 in
+#: shared memory at this width
 MAX_HEAD_DIM = 256
 #: head_dims of the tensor-core kernel (bfloat16 only): one or two
 #: 64-column swizzled panels a row; at 256 its float32 O accumulator

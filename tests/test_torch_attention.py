@@ -15,6 +15,8 @@ The CUDA kernels run only on a card: the ``cuda``-marked tests hold
 each against its plain version there and skip elsewhere.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -28,9 +30,11 @@ from repro.kernels.decode_attention import \
     decode_attention as decode_R                            # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention as flash_R                              # noqa: E402
-from repro_torch.kernels import decode_attention as DA      # noqa: E402
-from repro_torch.kernels import flash_attention as FA       # noqa: E402
 from repro_torch.kernels import ops                         # noqa: E402
+
+# the modules (the package binds the functions under these names)
+DA = importlib.import_module("repro_torch.kernels.decode_attention")
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
 from test_kernels import FLASH_CASES                        # noqa: E402
 
 #: the decode cases of tests/test_kernels.py: b, s, h, kv, d, cap, bk
