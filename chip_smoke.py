@@ -8,9 +8,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
   2. build   — ``nvcc`` builds every CUDA source of the port, in parallel;
   3. kernels — each per-flow CC kernel against its plain PyTorch version
                on the card at the main-path shape (R=36 runs x F=4096
-               flows) and at F in {1, 127, 129, 8193}: bitwise equal;
-               ``segment_reduce`` likewise at the DC shape (36 x 20,480
-               rows, C = 1, 2, 3) and the edge shapes; kernel / plain /
+               flows), at F in {1, 127, 129, 8193}, at n = R * F of every
+               residue mod 4 and at a view 4 bytes past a 16-byte
+               boundary: bitwise equal; swift's record adds the card's
+               floor for one launch at its grid (an empty kernel, a
+               three-in two-out copy); ``segment_reduce`` likewise at the
+               DC walk (C = 1, 2, 3), the hotspot's three walks (C = 3,
+               3, 2), a skewed CSR, a channel count for the row walk and
+               the edge shapes, and timed on the DC walk and each hotspot
+               walk beside the row walk (one thread a segment and channel),
+               ``torch.segment_reduce``, ``index_select`` of the walk and
+               its bound's bytes and chain terms (the chain from the
+               card's measured dependent-add latency); kernel / plain /
                library time and the bound;
   4. paper   — the paper's section II sweep: 3 schemes x the incast
                scene (window and equal-work, both wirings) for 14 ms at
@@ -246,8 +255,11 @@ def phase_build() -> dict:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _kernel_inputs(name: str, R: int, F: int, device, seed: int):
-    """(wrapper call, plain call) on random state of [R, F] flows."""
+def _kernel_inputs(name: str, R: int, F: int, device, seed: int,
+                   misaligned: bool = False):
+    """(wrapper call, plain call) on random state of [R, F] flows;
+    ``misaligned`` moves every state tensor to a view 4 bytes past a
+    16-byte boundary (the kernels' scalar path)."""
     import torch
     from repro_torch.core import cc
     from repro_torch.core.fluid import step_params
@@ -258,6 +270,16 @@ def _kernel_inputs(name: str, R: int, F: int, device, seed: int):
         (R, F), generator=g, device=device)
     bern = lambda p: (torch.rand((R, F), generator=g, device=device)  # noqa
                       < p).float()
+
+    def shift(xs):
+        if not misaligned:
+            return xs
+        out = []
+        for x in xs:
+            buf = torch.empty(x.numel() + 1, device=device)
+            buf[1:] = x.reshape(-1)
+            out.append(buf[1:].view(x.shape))
+        return type(xs)(*out) if hasattr(xs, "_fields") else out
     # one parameter row per run: a grid over the RP/ERP/swift constants
     cfgs = [CCSpec(dcqcn=DCQCNParams(g=1 / (64 + 32 * (r % 7)),
                                      rai=5e6 * (1 + r % 3)))
@@ -269,6 +291,7 @@ def _kernel_inputs(name: str, R: int, F: int, device, seed: int):
         xs = [u(0, 4e6), u(0, 5e7), u(0, 1e6), u(0, 1e-4), u(0, 12.5e9),
               u(0, 2e-3), u(1e-3, 4e-3), u(0, 6e7), u(1e6, 4e6)]
         xs[7] = torch.where(bern(0.5) > 0, torch.inf, xs[7])
+        xs = shift(xs)
         t_sec = u(0, 3e-3)[:, 0].contiguous()
         kw = dict(t_sec=t_sec, dt=dt)
         return (lambda: K.gen_np_step(*xs, **kw),
@@ -278,15 +301,16 @@ def _kernel_inputs(name: str, R: int, F: int, device, seed: int):
         st = RPState(u(1e6, 12.5e9), u(1e6, 12.5e9), u(0, 1), u(0, 1.2e7),
                      u(0, 6e-5), u(0, 6e-5),
                      torch.floor(u(0, 9)), torch.floor(u(0, 9)))
-        cnp = bern(0.3)
+        st, (cnp,) = shift(st), shift([bern(0.3)])
         return (lambda: K.rp_step(st, cnp, packed=rows["rp"]),
                 lambda: K.rp_plain(st, cnp, rows["rp"]))
     if name == "erp_step":
         xs = [u(1e6, 12.5e9), u(0, 6e-5) * bern(0.5), bern(0.3),
               u(1e6, 12.5e9), u(2.5e12, 7.5e12)]
+        xs = shift(xs)
         return (lambda: K.erp_step(*xs, packed=rows["erp"]),
                 lambda: K.erp_plain(*xs, rows["erp"]))
-    xs = [u(1e6, 12.5e9), u(0, 5e-5) * bern(0.5), u(0, 1e-5)]
+    xs = shift([u(1e6, 12.5e9), u(0, 5e-5) * bern(0.5), u(0, 1e-5)])
     return (lambda: K.swift_step(*xs, packed=rows["swift"]),
             lambda: K.swift_plain(*xs, rows["swift"]))
 
@@ -356,23 +380,57 @@ def _max_abs_err(a, b) -> float:
     return err
 
 
+#: (R, F) batches each CC kernel is held at: the main path, F straddling
+#: the block sizes, and n = R * F at every residue mod 4 (swift's four
+#: flows a thread); "36x4096_misaligned" repeats the main path 4 bytes
+#: past a 16-byte boundary
+CC_CASES = [(36, 4096), (1, 1), (3, 127), (3, 129), (2, 8193), (1, 4097),
+            (1, 4098), (1, 4099)]
+
+
+def _swift_floor(K, n: int, device) -> dict:
+    """The card's floor for one launch at swift's grid: an empty kernel,
+    and a kernel that reads three and writes two [n] float32 arrays,
+    timed by the same CUDA-graph replay as the kernel."""
+    import torch
+    lib = K._lib()
+    a, b, c, x, y = (torch.rand(n, device=device) for _ in range(5))
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(lib.cc_error_string(err).decode())
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    floor_ms, _ = _time_ms(lambda: check(lib.cc_swift_floor(n, stream())))
+    copy_ms, _ = _time_ms(lambda: check(lib.cc_swift_copy(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(),
+        y.data_ptr(), n, stream())))
+    torch.cuda.synchronize()
+    assert torch.equal(x, a) and torch.equal(y, b + c)
+    return {"launch_floor_us": floor_ms * 1e3, "copy_us": copy_ms * 1e3}
+
+
 def phase_kernels(device) -> dict:
     """Every kernel bitwise against its plain version; timings at the
     main-path shape.  Launches made here are not counted by phase 6."""
     import torch
     from repro_torch.kernels import cc_step as K
+    t0 = time.perf_counter()
     out = {}
     for name, (replaces, ops) in KERNELS.items():
         errs = {}
-        for (R, F) in [(36, 4096), (1, 1), (3, 127), (3, 129), (2, 8193)]:
-            kern, plain = _kernel_inputs(name, R, F, device, seed=R * F)
+        for (R, F), mis in [(c, False) for c in CC_CASES] + [((36, 4096),
+                                                              True)]:
+            kern, plain = _kernel_inputs(name, R, F, device, seed=R * F,
+                                         misaligned=mis)
             err = _max_abs_err(kern(), plain())
             torch.cuda.synchronize()
-            errs[f"{R}x{F}"] = err
+            tag = f"{R}x{F}" + ("_misaligned" if mis else "")
+            errs[tag] = err
             if err != 0.0:
                 raise AssertionError(
-                    f"{name} differs from its plain version at "
-                    f"R={R}, F={F}: max |diff| = {err}")
+                    f"{name} differs from its plain version at {tag}: "
+                    f"max |diff| = {err}")
         kern, plain = _kernel_inputs(name, 36, 4096, device, seed=7)
         (ms, eager_ms), (plain_ms, plain_eager_ms) = (_time_ms(kern),
                                                       _time_ms(plain))
@@ -387,12 +445,19 @@ def phase_kernels(device) -> dict:
             "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None}
-        emit({"phase": "kernels", "kernel": name, "shape": [36, 4096],
-              "bitwise_equal": errs, "us": ms * 1e3,
-              "plain_us": plain_ms * 1e3, "bound_us": max(b_ms, o_ms) * 1e3,
-              "eager_us": eager_ms * 1e3,
-              "plain_eager_us": plain_eager_ms * 1e3,
-              "bytes": K.BYTES_PER_FLOW[name] * n})
+        rec = {"phase": "kernels", "kernel": name, "shape": [36, 4096],
+               "bitwise_equal": errs, "us": ms * 1e3,
+               "plain_us": plain_ms * 1e3,
+               "bound_us": max(b_ms, o_ms) * 1e3,
+               "eager_us": eager_ms * 1e3,
+               "plain_eager_us": plain_eager_ms * 1e3,
+               "bytes": K.BYTES_PER_FLOW[name] * n}
+        if name == "swift_step":
+            floors = _swift_floor(K, n, device)
+            rec.update(floors)
+            out[name].update(floors)
+        emit(rec)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -424,21 +489,50 @@ def _vc2_sweep():
     return Sweep.grid(configs=cfgs, scenarios=scen)
 
 
+#: channels of the hotspot step's three walks over its one CSR (the
+#: link sums of core/fluid.py: B and the two rate sums, then the marks)
+HOT_WALK_CHANNELS = (3, 3, 2)
+#: dependent adds timed for the chain term's per-add latency
+FADD_CHAIN = 1 << 16
+
+
+def _walk(off):
+    """(longest segment, its rows) of CSR ``off``."""
+    lens = off[1:] - off[:-1]
+    return int(lens.max()), lens
+
+
+def _skewed_csr(device, g):
+    """One 5000-row segment among 10,000 short ones (0-40 rows), walked
+    through a random gather: the one_segment shape beside short work."""
+    import torch
+    lens = torch.randint(0, 41, (10001,), generator=g, device=device)
+    lens[3000] = 5000
+    off = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    n = int(off[-1])
+    rows = torch.randperm(n, generator=g, device=device)
+    return off, rows, n
+
+
 def _seg_cases(device):
     """(tag, data, rows, offsets) of segment_reduce: the fluid step's
-    walks (its CSR over the real queues) at the DC batch (C = 1, 2, 3)
-    and at F in {1, 127, 129, 8193}, plus the edge shapes."""
+    walks (its CSR over the real queues) at the DC batch (C = 1, 2, 3),
+    at F in {1, 127, 129, 8193} and the hotspot's three walks (C = 3, 3,
+    2 over one CSR), plus the edge shapes, a skewed CSR and a channel
+    count the staged kernel is not built for (the row walk)."""
     import torch
     from repro_torch.kernels.fluid_reduce import csr_offsets
     g = torch.Generator(device=device).manual_seed(12)
     cases = []
-    for tag, sweep in [("dc", _dc_sweep())] + [
+    for tag, sweep in [("dc", _dc_sweep()), ("hot", _hotspot_sweep())] + [
             (f"F{F}", _flows_sweep(F)) for F in (1, 127, 129, 8193)]:
         stg = sweep.prepare(1, device=device)
         plan, n = stg.plan, stg.sd.alt_routes.numel()     # R*F*K*H rows
-        for C in ((1, 2, 3) if tag == "dc" else (3,)):
+        chans = {"dc": (1, 2, 3), "hot": HOT_WALK_CHANNELS}.get(tag, (3,))
+        for w, C in enumerate(chans):
             data = torch.randn((n, C), generator=g, device=device)
-            cases.append((f"{tag}_C{C}", data, plan.seg_rows, plan.seg_off))
+            name = f"{tag}{w}_C{C}" if tag == "hot" else f"{tag}_C{C}"
+            cases.append((name, data, plan.seg_rows, plan.seg_off))
     z = torch.zeros((1,), dtype=torch.int64, device=device)
     cases.append(("N0", torch.zeros((0, 2), device=device), None,
                   z.expand(6).contiguous()))
@@ -449,15 +543,99 @@ def _seg_cases(device):
     cases.append(("one_segment", torch.randn((5000, 3), generator=g,
                                              device=device), None,
                   torch.tensor([0, 0, 5000, 5000], device=device)))
+    off, rows, n = _skewed_csr(device, g)
+    for C in (1, 3):
+        cases.append((f"skewed_C{C}", torch.randn((n, C), generator=g,
+                                                  device=device), rows, off))
+    cases.append(("rowwalk_C5", torch.randn((n, 5), generator=g,
+                                            device=device), rows, off))
     return cases
+
+
+def _fadd_clocks(device) -> float:
+    """Clocks of one dependent __fadd_rn on this card: one thread adds
+    FADD_CHAIN values in a chain between two clock64 reads (the least
+    time a segment's sum can take is its length times this)."""
+    import torch
+    from repro_torch.kernels import fluid_reduce as FR
+    lib = FR._lib()
+    x = torch.tensor([1.0, 1e-7], device=device)
+    clocks = torch.zeros(1, dtype=torch.int64, device=device)
+    total = torch.zeros(1, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):                   # the first call warms the clock
+        err = lib.fr_fadd_clocks(x.data_ptr(), FADD_CHAIN, clocks.data_ptr(),
+                                 total.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(lib.fr_error_string(err).decode())
+    torch.cuda.synchronize()
+    return int(clocks) / FADD_CHAIN
+
+
+def _time_walk(tag, data, rows, off, clock_mhz: float,
+               fadd_clocks: float) -> dict:
+    """One walk timed: the staged kernel (its schedule passed, as the
+    fluid step does) and the row walk by CUDA-graph replay, the plain
+    version and torch.segment_reduce by events; the bound's bytes and
+    chain terms.  Beside them, what the random gather alone costs: the
+    32-byte sectors the walk's data rows span (``sector_bytes``, with the
+    indices, offsets and output), ``torch.index_select`` of the walk
+    (``gather_us``) and the kernel over the walk already gathered into
+    order (``sorted_us``), both by graph replay."""
+    import torch
+    from repro_torch.kernels import fluid_reduce as FR
+    S, C = off.shape[0] - 1, data.shape[1]
+    M = rows.shape[0]
+    sched = FR.reduce_schedule(off)
+    run = lambda: FR.segment_reduce(data, None, S, rows=rows,  # noqa: E731
+                                    offsets=off, schedule=sched)
+    srt = data[rows]
+    longest, lengths = _walk(off)
+    lib = torch.segment_reduce(srt, "sum", lengths=lengths, axis=0)
+    lib_same = bool(torch.equal(lib, run()))
+    ms, eager_ms = _time_ms(run)
+    rowwalk_ms, _ = _time_ms(lambda: FR.segment_reduce_rowwalk(data, off,
+                                                               rows))
+    gather_ms, _ = _time_ms(lambda: torch.index_select(data, 0, rows))
+    sorted_ms, _ = _time_ms(lambda: FR.segment_reduce(
+        srt, None, S, offsets=off, schedule=sched))
+    first = rows * (4 * C)
+    sectors = int(((first + 4 * C - 1) // 32 - first // 32 + 1).sum())
+    # the plain version reads its walk length on the host: not capturable
+    plain_ms = _event_ms(lambda: FR.segment_reduce_plain(data, off, rows),
+                         n=10 if longest < 500 else 2)
+    # torch.segment_reduce syncs with the host: not capturable either
+    library_ms = _event_ms(lambda: torch.segment_reduce(
+        srt, "sum", lengths=lengths, axis=0))
+    nbytes = 4 * M * C + 8 * M + 8 * (S + 1) + 4 * S * C
+    sector_bytes = nbytes - 4 * M * C + 32 * sectors
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = M * C / FP32_FLOPS * 1e3
+    chain_ms = longest * fadd_clocks / (clock_mhz * 1e6) * 1e3
+    return {"walk": tag, "shape": [M, C, S], "longest_segment": longest,
+            "items": int(sched.items.shape[0]), "long_items": sched.n_long,
+            "us": ms * 1e3, "eager_us": eager_ms * 1e3,
+            "rowwalk_us": rowwalk_ms * 1e3, "gather_us": gather_ms * 1e3,
+            "sorted_us": sorted_ms * 1e3, "plain_us": plain_ms * 1e3,
+            "library_us": library_ms * 1e3, "library_bitwise_equal": lib_same,
+            "bytes": nbytes, "bytes_bound_us": b_ms * 1e3,
+            "sector_bytes": sector_bytes,
+            "sector_bound_us": sector_bytes / HBM_BYTES_PER_S * 1e6,
+            "ops_bound_us": o_ms * 1e3, "chain_bound_us": chain_ms * 1e3,
+            "bound_us": max(b_ms, o_ms, chain_ms) * 1e3,
+            "of_bound": max(b_ms, o_ms, chain_ms) / ms,
+            "clock_mhz": clock_mhz, "fadd_clocks": fadd_clocks}
 
 
 def phase_segment_reduce(device) -> dict:
     """segment_reduce bitwise against its plain version at every case;
-    timed (and against torch.segment_reduce) at the DC shape, C = 3."""
+    timed at the DC walk and at each hotspot walk (the path that
+    launches it), beside the row walk, its plain version and
+    torch.segment_reduce.  The kernels row takes the first hotspot walk."""
     import torch
     from repro_torch.kernels import fluid_reduce as FR
-    errs, dc = {}, None
+    t0 = time.perf_counter()
+    errs, walks = {}, {}
     for tag, data, rows, off in _seg_cases(device):
         S = off.shape[0] - 1
         got = FR.segment_reduce(data, None, S, rows=rows, offsets=off)
@@ -467,39 +645,28 @@ def phase_segment_reduce(device) -> dict:
         if errs[tag] != 0.0:
             raise AssertionError(f"segment_reduce differs from its plain "
                                  f"version at {tag}: {errs[tag]}")
-        if tag == "dc_C3":
-            dc = (data, rows, off)
-    data, rows, off = dc
-    S, C = off.shape[0] - 1, data.shape[1]
-    M = rows.shape[0]
-    srt = data[rows]
-    lengths = off[1:] - off[:-1]
-    lib = torch.segment_reduce(srt, "sum", lengths=lengths, axis=0)
-    lib_same = bool(torch.equal(
-        lib, FR.segment_reduce(data, None, S, rows=rows, offsets=off)))
-    ms, eager_ms = _time_ms(lambda: FR.segment_reduce(
-        data, None, S, rows=rows, offsets=off))
-    # the plain version reads its walk length on the host: not capturable
-    plain_ms = _event_ms(lambda: FR.segment_reduce_plain(data, off, rows))
-    # torch.segment_reduce syncs with the host: not capturable either
-    library_ms = _event_ms(lambda: torch.segment_reduce(
-        srt, "sum", lengths=lengths, axis=0))
-    nbytes = 4 * M * C + 8 * M + 8 * (S + 1) + 4 * S * C
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = M * C / FP32_FLOPS * 1e3
+        if tag == "dc_C3" or tag.startswith("hot"):
+            walks[tag] = (data, rows, off)
+    emit({"phase": "kernels", "kernel": "segment_reduce",
+          "bitwise_equal": errs})
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    fadd = _fadd_clocks(device)
+    recs = {tag: _time_walk(tag, *w, clock_mhz, fadd)
+            for tag, w in walks.items()}
+    for rec in recs.values():
+        emit({"phase": "kernels", "kernel": "segment_reduce", **rec})
+    hot = recs["hot0_C3"]
+    b_ms = max(hot["bytes_bound_us"], hot["ops_bound_us"]) / 1e3
     row = {"name": "segment_reduce", "route": "cuda",
            "source": WHOLE_STEP["segment_reduce"][0],
            "replaces": WHOLE_STEP["segment_reduce"][1], "launches": None,
-           "max_abs_err": max(errs.values()), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
-           "bound_by": "bytes" if b_ms >= o_ms else "operations",
-           "library_ms": library_ms}
-    emit({"phase": "kernels", "kernel": "segment_reduce",
-          "shape": [M, C, S], "bitwise_equal": errs, "us": ms * 1e3,
-          "plain_us": plain_ms * 1e3, "bound_us": row["bound_ms"] * 1e3,
-          "library_us": library_ms * 1e3, "eager_us": eager_ms * 1e3,
-          "library_bitwise_equal": lib_same,
-          "longest_segment": int(lengths.max()), "bytes": nbytes})
+           "max_abs_err": max(errs.values()), "ms": hot["us"] / 1e3,
+           "plain_ms": hot["plain_us"] / 1e3, "bound_ms": b_ms,
+           "bound_by": ("bytes" if hot["bytes_bound_us"]
+                        >= hot["ops_bound_us"] else "operations"),
+           "library_ms": hot["library_us"] / 1e3,
+           "chain_ms": hot["chain_bound_us"] / 1e3, "walk": "hot0_C3"}
+    emit({"phase": "segment_reduce", "seconds": time.perf_counter() - t0})
     return row
 
 

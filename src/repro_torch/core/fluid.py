@@ -57,7 +57,8 @@ import torch
 
 from ..kernels import fluid_step as mega
 from ..kernels.cc_step import gen_np_step
-from ..kernels.fluid_reduce import segment_reduce
+from ..kernels.fluid_reduce import (ReduceSchedule, reduce_schedule,
+                                    segment_reduce)
 from . import cc
 from .params import CCConfig, CCSpec, ROUTING_MODES
 from .routing import PAD, link_incidence
@@ -173,8 +174,10 @@ class ReducePlan(NamedTuple):
     ``[R*L]`` link rows.  The segment-sum engines walk the CSR
     ``seg_rows``/``seg_off`` over the R*S real queues (segment ``r*S +
     q``; the scratch queue, which only ever holds zeros, is left out);
-    ``seg_ids`` is each walk entry's segment.  ``pool_off`` is the
-    per-run CSR of the pool over ``ScenarioDev.pool_perm``.
+    ``seg_ids`` is each walk entry's segment; ``seg_sched`` the
+    ``segment_reduce`` kernel's work items over that CSR, shared by every
+    walk of the step.  ``pool_off`` is the per-run CSR of the pool over
+    ``ScenarioDev.pool_perm``.
     """
 
     dense_src: "torch.Tensor | None"   # [rows, R, S] int64
@@ -182,6 +185,7 @@ class ReducePlan(NamedTuple):
     seg_rows: torch.Tensor             # [M] int64 rows of [R*F*K*H]
     seg_ids: torch.Tensor              # [M] int64 segment r*S + q
     seg_off: torch.Tensor              # [R*S + 1] int64 CSR offsets
+    seg_sched: ReduceSchedule          # the kernel's work items
     pool_off: torch.Tensor             # [R, n_switches + 1] int64
     dt: torch.Tensor                   # [] f32
 
@@ -554,7 +558,8 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
     return ReducePlan(
         dense_src=None if dense_src is None else t(dense_src),
         pool_src=t(pool_src), seg_rows=t(seg_rows), seg_ids=t(seg_ids),
-        seg_off=t(seg_off), pool_off=t(pool_off),
+        seg_off=t(seg_off), seg_sched=reduce_schedule(seg_off, dev),
+        pool_off=t(pool_off),
         dt=torch.tensor(dt, dtype=torch.float32, device=dev))
 
 
@@ -690,7 +695,8 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
             acc = _ordered_walk(ext, plan.dense_src)   # [R, S, C]
         elif reduce == "pallas" or data.device.type != "cpu":
             acc = segment_reduce(data, None, R * S, rows=plan.seg_rows,
-                                 offsets=plan.seg_off).reshape(R, S, C)
+                                 offsets=plan.seg_off,
+                                 schedule=plan.seg_sched).reshape(R, S, C)
         else:                       # CPU segment sum: index_add_ in order
             acc = data.new_zeros((R * S, C)).index_add_(
                 0, plan.seg_ids, data[plan.seg_rows]).reshape(R, S, C)

@@ -47,6 +47,10 @@ _SIGNATURES = {
     "cc_rp_step": ([_P, _I, _I, _I] + [_P] * 18, ctypes.c_int),
     "cc_erp_step": ([_P, _I, _I, _I] + [_P] * 8, ctypes.c_int),
     "cc_swift_step": ([_P, _I, _I, _I] + [_P] * 6, ctypes.c_int),
+    # yardsticks at swift's grid: an empty kernel (n, stream) and a
+    # three-in two-out copy (a, b, c, x, y, n, stream)
+    "cc_swift_floor": ([_I, _P], ctypes.c_int),
+    "cc_swift_copy": ([_P] * 5 + [_I, _P], ctypes.c_int),
     "cc_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

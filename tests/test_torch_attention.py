@@ -35,6 +35,8 @@ from repro_torch.kernels import ops                         # noqa: E402
 # the modules (the package binds the functions under these names)
 DA = importlib.import_module("repro_torch.kernels.decode_attention")
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
+FR = importlib.import_module("repro_torch.kernels.fluid_reduce")
+KP = importlib.import_module("repro_torch.kernels.cc_step")
 from test_kernels import FLASH_CASES                        # noqa: E402
 
 #: the decode cases of tests/test_kernels.py: b, s, h, kv, d, cap, bk
@@ -616,17 +618,20 @@ def test_kernels_at_the_cap_on_cuda():
 
 
 @pytest.mark.parametrize("mod,src", [(FA, "flash_attention.cu"),
-                                     (DA, "decode_attention.cu")])
+                                     (DA, "decode_attention.cu"),
+                                     (FR, "fluid_reduce.cu"),
+                                     (KP, "cc_step.cu")])
 def test_ctypes_signatures_match_the_sources(mod, src):
     """Each C entry point's declared argtypes count its parameters in
     the CUDA source (ctypes would otherwise pass too few), and each
-    pointer, int and float parameter is declared as one; the library
-    exports every C entry point the wrapper declares and no other."""
+    pointer, int, long long and float parameter is declared as one; the
+    library exports every C entry point the wrapper declares and no
+    other."""
     import ctypes
     import re
     text = _cu_source(src)
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
-             ctypes.c_float: "float"}
+             ctypes.c_float: "float", ctypes.c_longlong: "long long"}
     for sym, (argtypes, _) in mod._SIGNATURES.items():
         m = re.search(r'extern "C" [^(]*\b' + sym + r"\(([^)]*)\)", text)
         assert m, sym
@@ -634,6 +639,7 @@ def test_ctypes_signatures_match_the_sources(mod, src):
         assert len(params) == len(argtypes), (sym, params)
         for p, a in zip(params, argtypes):
             want = ("ptr" if "*" in p else "float" if "float" in p
+                    else "long long" if "long long" in p
                     else "int" if re.search(r"\bint\b", p) else p)
             assert kinds.get(a) == want, (sym, p, a)
     exported = set(re.findall(r'extern "C" [^(]*?\b(\w+)\(', text))

@@ -266,5 +266,27 @@ def test_kernels_match_plain_on_cuda():
         for a, b in zip(KP.gen_np_step(*xs, t_sec=t_sec, dt=dt),
                         KP.gen_np_plain(*xs, KP.pack_gen_np_params(t_sec, dt))):
             assert torch.equal(a, b)
+    # swift takes four flows a thread with 16-byte loads: every residue
+    # of n mod 4, runs that end inside a thread, and views 4 bytes past
+    # a 16-byte boundary (its scalar path)
+    rows = torch.cat([KP.pack_swift_params(RP.SwiftKParams(
+        **dict(SWIFT_P, target=SWIFT_P["target"] * (r + 1))))
+        for r in range(3)]).to(dev)
+    n_swift = 0
+    for R, F in [(1, 4097), (1, 4098), (1, 4099), (3, 1), (3, 2), (3, 1365)]:
+        for shift in (0, 1):
+            xs = []
+            for x in _t(_swift_inputs(R * F, seed=F)):
+                buf = torch.zeros(R * F + shift, device=dev)
+                buf[shift:] = x.to(dev)
+                xs.append(buf[shift:].view(R, F))
+            assert xs[0].data_ptr() % 16 == 4 * shift
+            r = rows[:R] if R > 1 else rows[:1]
+            for a, b in zip(KP.swift_step(*xs, packed=r),
+                            KP.swift_plain(*xs, r)):
+                assert torch.equal(a, b), (R, F, shift)
+            n_swift += 1
     torch.cuda.synchronize()
-    assert KP.LAUNCHES == {k: len(SIZES) for k in KP.LAUNCHES}
+    want = {k: len(SIZES) for k in KP.LAUNCHES}
+    want["swift_step"] += n_swift
+    assert KP.LAUNCHES == want

@@ -16,6 +16,11 @@ CPU.
     tolerances (floats rtol 2e-3, counters within 2% or +-2) against the
     reference's.
 
+The card's work list, ``reduce_schedule``, is checked here on the CSRs
+the kernel walks (the hotspot's 2055-row queue, a dc-like permutation,
+empty, single and skewed CSRs): every segment in exactly one item, each
+in the right bucket, groups within the kernel's shared-memory chunk.
+
 The CUDA kernel runs only on a card: ``test_segment_reduce_kernel_on_
 cuda`` holds it bitwise to the plain version there and skips elsewhere.
 """
@@ -167,6 +172,158 @@ def test_pallas_sweep_matches_reference_at_golden_tolerance():
             assert abs(row[k] - want[name][k]) <= max(2, 0.02 * want[name][k])
 
 
+def _skewed_offsets(long_rows=2055, n_short=3000, seed=0):
+    """One ``long_rows``-row segment among ``n_short`` short ones (0-40
+    rows, some empty): the hotspot's queue beside ordinary ones."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(0, 41, size=n_short + 1)
+    lens[n_short // 3] = long_rows
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+
+def _hotspot_plan():
+    """The hotspot cell's batch (3 schemes x hotspot(4096, 272) on
+    dragonfly(4, 4, 4), flows open at 20 us), prepared on the CPU."""
+    import repro_torch.core as P
+    from repro_torch.core.workloads import hotspot
+    from repro_torch.net import FabricSpec
+    spec = hotspot(4096, 272, t_start=20e-6).spec(
+        fabric=FabricSpec.dragonfly(4, 4, 4))
+    sweep = P.Sweep.grid(configs={s.name: P.PAPER_CONFIG.replace(scheme=s)
+                                  for s in P.CCScheme},
+                         scenarios={"hot4096": spec})
+    return sweep.prepare(1, device="cpu").plan
+
+
+def _dc_offsets():
+    """One run of the dc cell's CSR: permutation(4096) on the 272-host
+    dragonfly."""
+    import repro_torch.core as P
+    from repro_torch.net import FabricSpec
+    spec = P.ScenarioSpec.permutation(4096, seed=0,
+                                      fabric=FabricSpec.dragonfly(4, 4, 4))
+    sweep = P.Sweep.grid(configs={"dcqcn": P.PAPER_CONFIG},
+                         scenarios={"dc": spec})
+    return sweep.prepare(1, device="cpu").plan.seg_off.numpy()
+
+
+CSRS = {
+    "hotspot": lambda: _hotspot_plan().seg_off.numpy(),
+    "dc": _dc_offsets,
+    "empty_segments": lambda: np.zeros(9, np.int64),
+    "N0": lambda: np.zeros(1, np.int64),
+    "single": lambda: np.asarray([0, 5000], np.int64),
+    "skewed": _skewed_offsets,
+    "all_long": lambda: np.arange(0, 6 * 300, 300, dtype=np.int64),
+    "tiny_many": lambda: np.arange(0, 1001, dtype=np.int64) // 3,
+}
+
+
+@pytest.mark.parametrize("name", sorted(CSRS))
+def test_schedule_partitions_every_segment_once(name):
+    """``reduce_schedule``: the long segments (more than LONG_ROWS rows)
+    first, one item each, in order; then groups of consecutive short
+    segments of at most CHUNK_ROWS rows and GROUP_SEGS segments; every
+    segment in exactly one item, each item with its walk range, and each
+    group's lanes a permutation of its segments, longest first."""
+    off = CSRS[name]()
+    lens = np.diff(off)
+    sched = FR.reduce_schedule(torch.from_numpy(off))
+    items = sched.items.numpy()
+    assert sched.items.dtype == torch.int32 and items.shape[1] == 4
+    assert sched.lanes.dtype == torch.uint8
+    assert sched.lanes.shape == (lens.size,)
+    assert np.array_equal(items[:, 2:], off[items[:, :2]])
+    lanes = sched.lanes.numpy().astype(np.int64)
+    longs, groups = items[:sched.n_long, :2], items[sched.n_long:, :2]
+    assert np.array_equal(longs[:, 0], np.flatnonzero(lens > FR.LONG_ROWS))
+    assert np.array_equal(longs[:, 1], longs[:, 0] + 1)
+    seen = np.zeros(lens.size, np.int64)
+    for a, b in longs:
+        seen[a:b] += 1
+    for a, b in groups:
+        assert 0 < b - a <= FR.GROUP_SEGS, (a, b)
+        assert (lens[a:b] <= FR.LONG_ROWS).all(), (a, b)
+        assert off[b] - off[a] <= FR.CHUNK_ROWS, (a, b)
+        order = a + lanes[a:b]
+        assert np.array_equal(np.sort(order), np.arange(a, b)), (a, b)
+        assert (np.diff(lens[order]) <= 0).all(), (a, b)
+        seen[a:b] += 1
+    assert (seen == 1).all()
+    if groups.size:                       # groups in segment order
+        assert (groups[1:, 0] >= groups[:-1, 1]).all()
+    if name == "hotspot":
+        assert lens.max() == 2055 and sched.n_long == 12
+
+
+def test_plan_carries_the_schedule_of_its_csr():
+    """The fluid step's plan holds the schedule of its own CSR, so the
+    three walks of a step share one."""
+    plan = _hotspot_plan()
+    want = FR.reduce_schedule(plan.seg_off)
+    assert plan.seg_sched.n_long == want.n_long
+    assert torch.equal(plan.seg_sched.items, want.items)
+    assert torch.equal(plan.seg_sched.lanes, want.lanes)
+
+
+def test_kernel_constants_match_the_source():
+    """The schedule's chunk and group sizes are the kernel's shared-memory
+    chunk (``kChunkRows``) and thread count (``kGroupSegs``), and a long
+    segment is longer than a short group's chain phase should run."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(FR.__file__), "..", "csrc",
+                        "fluid_reduce.cu")
+    text = open(path).read()
+    val = lambda name: int(re.search(  # noqa: E731
+        r"constexpr int " + name + r" = (\w+);", text).group(1)
+        .replace("kThreads", re.search(r"constexpr int kThreads = (\d+);",
+                                       text).group(1)))
+    assert val("kChunkRows") == FR.CHUNK_ROWS
+    assert val("kGroupSegs") == FR.GROUP_SEGS
+    assert FR.LONG_ROWS <= FR.CHUNK_ROWS
+    assert re.search(r"case (\d):", text) and sorted(
+        int(c) for c in re.findall(r"case (\d):", text)) == list(
+            FR.STAGED_CHANNELS)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_skewed_csr_matches_reference_with_and_without_schedule(c):
+    """One 2055-row segment among short ones: equal to the reference's
+    Pallas kernel (interpret mode) with and without a passed schedule."""
+    off = _skewed_offsets(n_short=400, seed=c)
+    lens = np.diff(off)
+    seg = np.repeat(np.arange(lens.size), lens).astype(np.int32)
+    data = np.random.RandomState(c).randn(seg.size, c).astype(np.float32)
+    want = np.asarray(seg_R(jnp.asarray(data), jnp.asarray(seg), lens.size,
+                            interpret=True))
+    x, o = torch.from_numpy(data), torch.from_numpy(off)
+    for sched in (None, FR.reduce_schedule(o)):
+        got = FR.segment_reduce(x, None, lens.size, offsets=o,
+                                schedule=sched)
+        assert np.array_equal(got.numpy(), want)
+
+
+def _cuda_cases(dev):
+    """(data, offsets, rows) on the card: SHAPES, the skewed CSR through a
+    random gather at C = 1, 2, 3, and the hotspot's three walks."""
+    for n, c, s in SHAPES:
+        data, seg = _seg_inputs(n, c, s)
+        ids = torch.from_numpy(seg).long().to(dev)
+        yield torch.from_numpy(data).to(dev), FR.csr_offsets(ids, s), None
+    off = torch.from_numpy(_skewed_offsets()).to(dev)
+    n = int(off[-1])
+    rows = torch.from_numpy(np.random.RandomState(3).permutation(n)).to(dev)
+    for c in (1, 2, 3):
+        data = np.random.RandomState(c).randn(n, c).astype(np.float32)
+        yield torch.from_numpy(data).to(dev), off, rows
+    plan = _hotspot_plan()
+    for w, c in enumerate((3, 3, 2)):
+        data = np.random.RandomState(w).randn(3 * 4096 * 5, c)
+        yield (torch.from_numpy(data.astype(np.float32)).to(dev),
+               plan.seg_off.to(dev), plan.seg_rows.to(dev))
+
+
 @pytest.mark.cuda
 def test_segment_reduce_kernel_on_cuda():
     """On a card: the kernel bitwise equal to its plain version, counted."""
@@ -174,10 +331,13 @@ def test_segment_reduce_kernel_on_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU form)")
     dev = torch.device("cuda", torch.cuda.current_device())
     FR.reset_launch_counts()
-    for n, c, s in SHAPES:
-        data, seg = _seg_inputs(n, c, s)
-        x = torch.from_numpy(data).to(dev)
-        ids = torch.from_numpy(seg).long().to(dev)
-        assert torch.equal(FR.segment_reduce(x, ids, s),
-                           FR.segment_reduce_plain(x, FR.csr_offsets(ids, s)))
-    assert FR.LAUNCHES["segment_reduce"] == len(SHAPES)
+    n_calls = 0
+    for x, off, rows in _cuda_cases(dev):
+        S = off.shape[0] - 1
+        want = FR.segment_reduce_plain(x, off, rows)
+        for sched in (None, FR.reduce_schedule(off)):
+            got = FR.segment_reduce(x, None, S, rows=rows, offsets=off,
+                                    schedule=sched)
+            assert torch.equal(got, want)
+            n_calls += 1
+    assert FR.LAUNCHES["segment_reduce"] == n_calls
