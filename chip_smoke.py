@@ -49,7 +49,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
                the ``segment_reduce`` kernel; with ``reduce="pallas"``,
                through the megakernel and on the CPU it must agree
                bitwise;
-  9. attention — ``flash_attention`` (both routes: the tensor-core
+  9. capture — every ``Sweep.run`` above goes through ``SWEEP_EXEC_CACHE``
+               (one CUDA graph a trace window, replayed); here each cell
+               (paper, golden routing, pathology, dc, hotspot fused and
+               pallas) on the flow and mega tiers is held bitwise to its
+               eager run (``Sweep.prepare`` + the uncaptured
+               ``decimating_scan``), with steps/s both ways, the cache's
+               misses, hits and build seconds, each kernel's launches
+               equal both ways, the captured window's idle share and the
+               bytes the entries hold; the paper batch with another
+               ``dcqcn.kmin`` is a structural hit, bitwise equal to its
+               eager run; the cache is cleared before serving;
+ 10. attention — ``flash_attention`` (both routes: the tensor-core
                kernel for bf16 at d 64/128, the CUDA-core kernel for
                float32 and other widths; each call asserts its route) and
                ``decode_attention`` against their plain versions (3e-5
@@ -67,20 +78,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
                launches bitwise equal) and at recurrentgemma-9b's bf16
                local attention (d 256); the largest error of each route
                and dtype;
- 10. serve   — gemma2-27b at full width and depth in bfloat16 (random
+ 11. serve   — gemma2-27b at full width and depth in bfloat16 (random
                weights from seed 0 on the card): 8 ragged prompts of
                4100-4200 tokens on 4 slots, 16 new tokens each, through
-               ``ServingEngine.generate``; exact launch counts (46 a
-               prefill, all on the tensor-core route, 46 a decode step),
-               time to first token, prefill and decode tokens/s, peak
-               memory; one prefill call and 5 decode steps profiled (busy
-               ms, idle share); then at batch 1 the prefill and first
-               decode logits against the plain path;
- 11. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
+               ``ServingEngine.generate`` (its decode step captured once
+               as a CUDA graph); exact launch counts (46 a prefill, all on
+               the tensor-core route, 46 a decode step), time to first
+               token, prefill and decode tokens/s, peak memory; the same
+               tokens from an eager ``decode_step`` loop, with its decode
+               step ms; one prefill call and 5 decode steps profiled
+               (captured and eager wall, busy ms, idle share); then at
+               batch 1 the prefill and first decode logits against the
+               plain path;
+ 12. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
                global) in float32: greedy tokens equal to the plain path,
-               every flash launch on the CUDA-core route; time to first
-               token and seconds a prefill call on both paths;
- 12. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
+               every flash launch on the CUDA-core route, one capture an
+               engine; time to first token and seconds a prefill call on
+               both paths;
+ 13. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
                card and on the CPU: equal tokens (CUDA-core route); the
                serving launcher's ``--smoke`` run on the card.
 Kernel launch counts are zeroed just before each path's run and read
@@ -95,6 +110,7 @@ to this file) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -117,6 +133,8 @@ DC_STEPS = 5000
 DC_CHECK_STEPS = 200
 #: steps of the hotspot runs (card engines and the CPU window)
 HOT_STEPS = 200
+#: the megakernel tier's Sweep options
+MEGA = {"use_kernels": "mega"}
 
 KERNELS = {
     # name: (TPU kernel it replaces, float32 ops per flow)
@@ -759,16 +777,27 @@ def _profile_windows(stg, n: int, windows: int = 3) -> dict:
 # phase 4: the paper's section II sweep
 # ---------------------------------------------------------------------------
 
-def phase_paper(device) -> dict:
+def _paper_sweep(kmin: float | None = None):
+    """The paper's section II grid: 3 schemes x the incast scene (window
+    and equal-work, both wirings); ``kmin`` moves every point's DCQCN
+    marking threshold (the same structure, other data)."""
+    import dataclasses
     from repro_torch.core import (CCScheme, PAPER_CONFIG, ScenarioSpec,
                                   Sweep)
     scen = {}
     for roll in (0, 1):
         scen[f"window{roll}"] = ScenarioSpec.paper_incast(roll=roll)
         scen[f"volume{roll}"] = ScenarioSpec.paper_incast_volume(roll=roll)
-    sweep = Sweep.grid(
-        configs={s.name: PAPER_CONFIG.replace(scheme=s) for s in CCScheme},
-        scenarios=scen)
+    cfgs = {s.name: PAPER_CONFIG.replace(scheme=s) for s in CCScheme}
+    if kmin is not None:
+        cfgs = {k: dataclasses.replace(c, dcqcn=dataclasses.replace(
+            c.dcqcn, kmin=kmin)) for k, c in cfgs.items()}
+    return Sweep.grid(configs=cfgs, scenarios=scen)
+
+
+def phase_paper(device) -> dict:
+    from repro_torch.core import CCScheme
+    sweep = _paper_sweep()
     reset_counts()
     t0 = time.perf_counter()
     res = sweep.run(n_steps=14000, device=device)     # t_end = 14 ms
@@ -1242,7 +1271,186 @@ def phase_hotspot(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the attention kernels against their plain versions
+# phase 9: every Sweep cell captured against its eager run
+# ---------------------------------------------------------------------------
+
+#: (cell, sweep builder, steps, trace_every, engines): each cell's
+#: captured run against its eager run.  Steps are cut so the eager flow
+#: tier (host-bound, 80-200 steps/s) takes a few seconds a cell; the
+#: paper's flows open at 1 ms, so its cell runs 0.5 ms past that.
+CAPTURE_CELLS = [
+    ("paper", lambda: _paper_sweep(), 1500, None, ({}, MEGA)),
+    ("golden_routing", lambda: _golden_routing()[0], 600, None, ({}, MEGA)),
+    ("pathology", lambda: _golden_pathology()[0], 1000, None, ({}, MEGA)),
+    ("dc", lambda: _dc_sweep(), 300, 100, ({}, MEGA)),
+    ("hotspot", lambda: _hotspot_sweep(), 200, 100,
+     ({}, MEGA, {"reduce": "pallas"})),
+]
+
+
+def _eager_run(sweep, n_steps, trace_every, device, **kw):
+    """``sweep``'s run issued eagerly: ``Sweep.prepare`` and the
+    uncaptured ``decimating_scan`` (the port's eager API)."""
+    import torch
+    from repro_torch.core.simulator import decimating_scan
+    stg = sweep.prepare(n_steps, trace_every, device=device, **kw)
+    final, tr = decimating_scan(stg.step, stg.state, stg.n_samples,
+                                stg.trace_every,
+                                float(sweep.points[0].cfg.sim.dt),
+                                sweep.n_vcs, block_fn=stg.block)
+    res = sweep.collect(final, tr, stg.trace_every)
+    torch.cuda.synchronize()
+    return res
+
+
+def _replay_profile(entry, windows: int, events_only: bool) -> dict:
+    """Device busy and idle share of ``windows`` back-to-back advances of
+    a captured window (graph replays): kernel durations from
+    torch.profiler, or the graph's span by CUDA events around each
+    replay where the profiler sees no kernel inside the graph or
+    (``events_only``: the mega tier) misses the megakernel there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    entry.advance()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            entry.advance()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    per, n_ops = _device_us(prof)
+    rec = {"windows": windows, "profiled_wall_ms_per_window":
+           pwall / windows * 1e3}
+    by_profiler = bool(per) and not events_only
+    if per:
+        busy = sum(per.values()) / 1e6
+        rec.update({"profiler_ops_per_window": n_ops / windows,
+                    "profiler_busy_ms_per_window": busy / windows * 1e3,
+                    "device_idle_share_profiled": 1.0 - busy / pwall})
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(windows)]
+    t0 = time.perf_counter()
+    for a, b in ev:
+        a.record()
+        entry.advance()
+        b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    span = sum(a.elapsed_time(b) for a, b in ev) / 1e3
+    rec.update({"device_timed_by": "torch.profiler" if by_profiler
+                else "cuda events (the graph's span)",
+                "wall_ms_per_window": wall / windows * 1e3,
+                "graph_ms_per_window": span / windows * 1e3,
+                "device_idle_share": 1.0 - (busy if by_profiler else span)
+                / wall})
+    return rec
+
+
+def _cache_bytes() -> dict:
+    """Device bytes the sweep cache's entries hold: their static tensors,
+    and what clearing the cache gives back to the card (tensors and the
+    graphs' pools, ``memory_reserved`` before and after).  Clears it."""
+    import gc
+    import torch
+    from repro_torch.core import SWEEP_EXEC_CACHE
+    entries = SWEEP_EXEC_CACHE.values()
+    n, static = len(entries), sum(e.nbytes() for e in entries)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    SWEEP_EXEC_CACHE.clear()
+    del entries
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"entries": n, "static_bytes": static,
+            "freed_bytes": before - torch.cuda.memory_reserved()}
+
+
+def _capture_cell(sweep, n_steps, trace_every, device, kw) -> dict:
+    """One cell on one engine: the captured run (a miss, then a hit)
+    against the eager run, bitwise on every trace and final-state leaf,
+    with steps/s both ways, the cache's counters and the launches, and
+    the idle share of the captured window."""
+    import torch
+    from repro_torch.core import SWEEP_EXEC_CACHE
+    reset_counts()
+    t0 = time.perf_counter()
+    eager = _eager_run(sweep, n_steps, trace_every, device, **kw)
+    eager_s = time.perf_counter() - t0
+    eager_launches = counts()
+    s0 = SWEEP_EXEC_CACHE.stats()
+    walls, same = [], []
+    for _ in range(2):                       # the miss, then a hit
+        reset_counts()
+        t0 = time.perf_counter()
+        res = sweep.run(n_steps, trace_every, device=device, **kw)
+        walls.append(time.perf_counter() - t0)
+        same.append(_result_diff(res, eager)[0])
+        launches = counts()
+        assert launches == eager_launches, (launches, eager_launches)
+    d = SWEEP_EXEC_CACHE.stats() - s0
+    entry = SWEEP_EXEC_CACHE.values()[-1]
+    torch.cuda.synchronize()
+    rec = {"engine": kw or {"use_kernels": False}, "steps": n_steps,
+           "windows": len(eager.times), "runs": len(sweep.points),
+           "bitwise_equal_eager": all(same), "eager_wall_s": eager_s,
+           "eager_steps_per_s": n_steps / eager_s,
+           "captured_miss_wall_s": walls[0],
+           "captured_wall_s": walls[1],
+           "captured_steps_per_s": n_steps / walls[1],
+           "speedup": eager_s / walls[1], "cache": d.to_dict(),
+           "capture_s": entry.capture_s, "launches": eager_launches,
+           "entry_static_bytes": entry.nbytes(),
+           "captured_window": _replay_profile(
+               entry, 5, events_only=kw.get("use_kernels") == "mega")}
+    assert all(same), ("captured run differs from the eager run", rec)
+    assert (d.misses, d.hits) == (1, 1), d
+    return rec
+
+
+def phase_capture(device) -> dict:
+    """Each Sweep cell through SWEEP_EXEC_CACHE against its eager run on
+    each engine; the paper batch with another ``dcqcn.kmin`` as a
+    structural hit; then the device bytes the entries hold."""
+    from repro_torch.core import SWEEP_EXEC_CACHE, config_grid
+    t0 = time.perf_counter()
+    # what the earlier phases' entries hold (the serve phases need ~67
+    # GB of the card, so the phase ends with the cache cleared too)
+    rec = {"phase": "capture", "earlier_phases_cache_bytes": _cache_bytes(),
+           "cells": {}}
+    for cell, build, n, k, engines in CAPTURE_CELLS:
+        sweep = build()
+        out = rec["cells"][cell] = {}
+        for kw in engines:
+            tag = kw.get("use_kernels") or kw.get("reduce") or "flow"
+            out[tag] = _capture_cell(sweep, n, k, device, kw)
+        out["cache_bytes"] = _cache_bytes()
+    # a structural hit: the paper batch, every point's kmin moved
+    paper = _paper_sweep()
+    moved = _paper_sweep(kmin=8192.0)
+    n = CAPTURE_CELLS[0][2]
+    paper.run(n, device=device)
+    s0 = SWEEP_EXEC_CACHE.stats()
+    got = moved.run(n, device=device)
+    d = SWEEP_EXEC_CACHE.stats() - s0
+    want = _eager_run(moved, n, None, device)
+    hit = {"cache": d.to_dict(), "bitwise_equal_eager":
+           _result_diff(got, want)[0],
+           "differs_from_default_kmin":
+           not _result_diff(got, paper.run(n, device=device))[0]}
+    rec["structural_hit"] = hit
+    rec["cache_bytes"] = _cache_bytes()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    assert (d.misses, d.hits) == (0, 1), d
+    assert hit["bitwise_equal_eager"] and hit["differs_from_default_kmin"], hit
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 ATTN = {
@@ -1563,7 +1771,7 @@ def _flex_call(qT, kT, vT, *, window, valid):
 #: positions, gemma2's heads, float32, softcap 50), its global and its
 #: local layer; then recurrentgemma-9b's local attention in bfloat16
 #: (16/1 heads, d 256, window 2048, no softcap), the route's bf16 work at
-#: a real width (ROADMAP Queue 1 item 6)
+#: a real width (ROADMAP Queue 1 item 5)
 CC_SHAPES = [
     ("global", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", None,
      GEMMA_CAP, GEMMA_SCALE),
@@ -1850,7 +2058,7 @@ def phase_attention(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 10-12: serving gemma2-27b
+# phases 11-13: serving gemma2-27b
 # ---------------------------------------------------------------------------
 
 def _prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
@@ -1899,17 +2107,17 @@ def _kernel_vs_plain(params, cfg, prompt, device, route: str) -> dict:
     from repro_torch.models import transformer as T
     plain = dataclasses.replace(cfg, use_pallas=False)
     tok = torch.tensor([prompt], dtype=torch.int32, device=device)
-    t, n_layers = tok.shape[1], cfg.n_layers
+    n_layers = cfg.n_layers
     with torch.no_grad():
         reset_counts()
         lk, ck = T.prefill(params, cfg, tok, SERVE_MAX_LEN)
         nxt = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        dk, _ = T.decode_step(params, cfg, nxt, ck, t)
+        dk, _ = T.decode_step(params, cfg, nxt, ck, ck[0].pos)
         del ck
         _expect(counts(), "batch 1", flash=n_layers, decode=n_layers)
         _expect_routes(routes(), "batch 1", **{route: n_layers})
         lr, cr = T.prefill(params, plain, tok, SERVE_MAX_LEN)
-        dr, _ = T.decode_step(params, plain, nxt, cr, t)
+        dr, _ = T.decode_step(params, plain, nxt, cr, cr[0].pos)
         del cr
         _expect(counts(), "batch 1 plain", flash=n_layers, decode=n_layers)
         _expect_routes(routes(), "batch 1 plain", **{route: n_layers})
@@ -1942,12 +2150,14 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
                     n: int = 5) -> dict:
     """``n`` of the engine's decode steps on the serve cell's 4 slots
     (prompts cut to the shortest length), each followed by the engine's
-    host-side read of the logits: wall ms a step without and with
-    torch.profiler, device busy ms a step (sum of kernel and copy
-    durations on the one stream), the idle share against both walls,
-    and the heaviest kernels.  Should the trace hold no
-    ``decode_attention`` kernel (a ctypes launch the profiler missed),
-    busy time adds its launches at ``decode_us`` each, and says so."""
+    host-side read of the logits: wall ms a step captured (the engine's
+    graph replay) and eager (the same step, ``eng._decode``, issued op by
+    op), and captured under torch.profiler; device busy ms a step (sum
+    of kernel and copy durations on the one stream, or CUDA events
+    around each replay where the profiler sees no kernel inside the
+    graph), the idle share against both walls, and the heaviest kernels.
+    Should the trace hold no ``decode_attention`` kernel, busy time adds
+    its launches at ``decode_us`` each, and says so."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1957,33 +2167,57 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
         device=device)
     t = SERVE_PROMPT[0]
     grid = np.asarray([p[:t] for p in prompts[:SERVE_SLOTS]], np.int32)
-    logits, caches = eng._prefill(grid)
-    pos = t
+    cur = eng._joint_prefill(grid)[:, -1].float().cpu().numpy().argmax(-1)
 
-    def steps(k):
-        nonlocal logits, caches, pos
+    def eager(c):
+        eng._token.copy_(torch.from_numpy(c[:, None].astype(np.int32)))
+        with torch.no_grad():
+            return eng._decode()
+
+    def steps(k, fn=eng._step, events=None):
+        nonlocal cur
         for _ in range(k):
-            cur = logits[:, -1].float().cpu().numpy().argmax(-1)
-            logits, caches = eng._step(cur.astype(np.int32), caches, pos)
-            pos += 1
-        logits[:, -1].float().cpu()
+            if events is not None:
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                events.append((a, b))
+                a.record()
+            logits = fn(cur.astype(np.int32))
+            if events is not None:
+                b.record()
+            cur = logits[:, 0].float().cpu().numpy().argmax(-1)
 
-    steps(2)
+    steps(2)                      # the first step warms up and captures
     t0 = time.perf_counter()
     steps(n)
     wall = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    steps(n, eager)
+    eager_wall = (time.perf_counter() - t0) / n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         steps(n)
         pwall = (time.perf_counter() - t0) / n
-    del eng, logits, caches
+    ev = []
+    steps(n, events=ev)
+    torch.cuda.synchronize()
+    graph_ms = sum(a.elapsed_time(b) for a, b in ev) / n
+    captures = eng.captures
+    del steps, eager, eng
+    gc.collect()
     torch.cuda.empty_cache()
     rec = {"profiled_steps": n, "wall_ms_per_step": wall * 1e3,
-           "profiled_wall_ms_per_step": pwall * 1e3}
+           "eager_wall_ms_per_step": eager_wall * 1e3,
+           "profiled_wall_ms_per_step": pwall * 1e3,
+           "graph_ms_per_step_by_events": graph_ms, "captures": captures}
     per, n_ops = _device_us(prof)
     if not per:
-        rec["device"] = "not measured (the profiler saw no device events)"
+        busy = graph_ms / 1e3
+        rec.update({"device_timed_by": "cuda events around each replay "
+                    "(the profiler saw no device events)",
+                    "device_busy_ms_per_step": graph_ms,
+                    "device_idle_share": 1.0 - busy / wall})
         return rec
     busy = sum(per.values()) / n / 1e6
     seen = sum(us for name, us in per.items() if "decode_" in name) / n
@@ -1994,6 +2228,7 @@ def _profile_decode(cfg, params, prompts, device, decode_us: float,
             cfg.n_layers * decode_us
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     rec.update({
+        "device_timed_by": "torch.profiler",
         "device_busy_ms_per_step": busy * 1e3,
         "device_idle_share": 1.0 - busy / wall,
         "device_idle_share_profiled": 1.0 - busy / pwall,
@@ -2051,6 +2286,43 @@ def _profile_prefill(cfg, params, prompts, device) -> dict:
     return rec
 
 
+def _eager_serve(cfg, params, prompts, device) -> tuple[list, list]:
+    """The serve cell's greedy tokens without the engine: each wave of
+    SERVE_SLOTS prompts left-padded into one ``transformer.prefill``,
+    then SERVE_NEW - 1 eager ``transformer.decode_step`` calls (what the
+    engine serves with EOS off).  Returns the tokens and each decode
+    step's seconds (token upload to the step's end on the card, as
+    ``_timed`` times the engine's)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    outs, secs = [], []
+    with torch.no_grad():
+        for w in range(0, len(prompts), SERVE_SLOTS):
+            wave = prompts[w:w + SERVE_SLOTS]
+            plen = max(len(p) for p in wave)
+            grid = np.zeros((SERVE_SLOTS, plen), np.int32)
+            for i, p in enumerate(wave):
+                grid[i, plen - len(p):] = p
+            logits, caches = T.prefill(params, cfg, torch.from_numpy(grid)
+                                       .to(device), SERVE_MAX_LEN)
+            cur = logits[:, -1].cpu().numpy().argmax(-1).astype(np.int32)
+            toks = [cur]
+            for _ in range(SERVE_NEW - 1):
+                t0 = time.perf_counter()      # as the engine's _step is
+                tok = torch.from_numpy(cur[:, None].copy()).to(device)
+                logits, caches = T.decode_step(params, cfg, tok, caches,
+                                               caches[0].pos)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                cur = logits[:, 0].cpu().numpy().argmax(-1).astype(np.int32)
+                toks.append(cur)
+            del logits, caches
+            outs += [[int(t[i]) for t in toks] for i in range(len(wave))]
+    torch.cuda.empty_cache()
+    return outs, secs
+
+
 def phase_serve(device, decode_us: float) -> dict:
     """gemma2-27b, full width and depth, bf16, through the engine;
     ``decode_us`` is phase_attention's time of one decode launch."""
@@ -2101,16 +2373,34 @@ def phase_serve(device, decode_us: float) -> dict:
                sum(c[1] for c in calls["prefill"]) / prefill_s,
            "decode_step_ms": decode_s / max(n_decode, 1) * 1e3,
            "decode_tokens_per_s": SERVE_SLOTS * n_decode / decode_s,
+           # the first step warms up and captures; the rest replay
+           "first_decode_step_ms": calls["decode"][0][0] * 1e3,
+           "replayed_decode_step_ms": (decode_s - calls["decode"][0][0])
+           / max(n_decode - 1, 1) * 1e3,
            "generated_tokens": sum(len(o) for o in outs),
            "max_memory_allocated": peak, "launches": launches,
            "routes": by_route}
+    rec["captures"] = eng.captures
     assert st == {"prefills": 2, "refills": 0, "decode_steps": 30}, st
     assert all(len(o) == SERVE_NEW for o in outs), [len(o) for o in outs]
+    assert eng.captures == 1, eng.captures
     _expect(launches, "serve", flash=n_layers * n_prefill,
             decode=n_layers * n_decode)
     _expect_routes(by_route, "serve", tensor_core=n_layers * n_prefill)
-    del eng
+    del eng, calls
+    gc.collect()
     torch.cuda.empty_cache()
+    # the same tokens through the eager decode_step loop
+    t0 = time.perf_counter()
+    eager_outs, secs = _eager_serve(cfg, params, prompts, device)
+    rec["eager"] = {"seconds": time.perf_counter() - t0,
+                    "decode_step_ms": sum(secs) / len(secs) * 1e3,
+                    "decode_tokens_per_s": SERVE_SLOTS * len(secs)
+                    / sum(secs),
+                    "tokens_equal_captured": eager_outs == outs}
+    rec["decode_speedup_captured_vs_eager"] = \
+        rec["eager"]["decode_step_ms"] / rec["decode_step_ms"]
+    assert eager_outs == outs, "captured serve tokens differ from eager"
 
     rec["prefill_profile"] = _profile_prefill(cfg, params, prompts, device)
     rec["decode_profile"] = _profile_decode(cfg, params, prompts, device,
@@ -2143,7 +2433,7 @@ def phase_serve_f32(device) -> dict:
     params = init_params(T.param_defs(cfg), 0, torch.float32, device=device)
     sv = ServeConfig(batch_slots=2, max_len=SERVE_MAX_LEN, eos_token=-1)
     prompts = _prompts(cfg.vocab, 4, *SERVE_PROMPT, seed=1)
-    outs, launches, by_route, timing = {}, {}, {}, {}
+    outs, launches, by_route, timing, captures = {}, {}, {}, {}, {}
     for path, c in (("kernels", cfg),
                     ("plain", dataclasses.replace(cfg, use_pallas=False))):
         eng = ServingEngine(c, params, sv, device=device)
@@ -2153,18 +2443,20 @@ def phase_serve_f32(device) -> dict:
         t0 = time.perf_counter()
         outs[path] = eng.generate(prompts, max_new_tokens=8)
         launches[path], by_route[path] = counts(), routes()
+        captures[path] = eng.captures
         n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
         # each prefill call: 2 slots x ~4200 positions, 2 layers
         timing[path] = {"ttft_s": calls["prefill"][0][2] - t0,
                         "prefill_s": [c_[0] for c_ in calls["prefill"]]}
-        del eng
+        del eng, calls
+        gc.collect()
         torch.cuda.empty_cache()
     cmp = _kernel_vs_plain(params, cfg, prompts[0], device, "cuda_core")
     rec = {"phase": "serve_f32", "layers": cfg.n_layers, "requests": 4,
            "slots": 2, "new_tokens": 8, "tokens_equal":
            outs["kernels"] == outs["plain"], "tokens": outs["kernels"],
            "launches": launches, "routes": by_route, "timing": timing,
-           "kernel_vs_plain_batch1": cmp,
+           "captures": captures, "kernel_vs_plain_batch1": cmp,
            "logit_rtol": SERVE_F32_LOGIT_RTOL}
     emit(rec)
     for tag, c in cmp.items():
@@ -2175,6 +2467,7 @@ def phase_serve_f32(device) -> dict:
     _expect(launches["plain"], "serve_f32 plain")
     _expect_routes(by_route["plain"], "serve_f32 plain")
     assert rec["tokens_equal"], (outs["kernels"], outs["plain"])
+    assert captures == {"kernels": 1, "plain": 1}, captures
     del params
     torch.cuda.empty_cache()
     return rec
@@ -2213,9 +2506,11 @@ def phase_card_vs_cpu(device) -> dict:
     rec = {"phase": "card_vs_cpu", "config": "gemma2-27b smoke",
            "tokens_equal": card_out == cpu_out, "stats": eng.stats,
            "cpu_stats": cpu_eng.stats, "launches": launches,
-           "routes": by_route, "launcher_launches": launcher_launches}
+           "routes": by_route, "launcher_launches": launcher_launches,
+           "captures": eng.captures}
     emit(rec)
     assert rec["tokens_equal"], (card_out, cpu_out)
+    assert eng.captures == 1, eng.captures
     assert eng.stats == cpu_eng.stats and eng.stats["refills"] >= 1, rec
     _expect(launches, "card_vs_cpu", flash=cfg.n_layers * len(
         calls["prefill"]), decode=cfg.n_layers * len(calls["decode"]))
@@ -2237,6 +2532,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     # float32 products in full float32 (the port's parity contract)
@@ -2258,6 +2554,7 @@ def main() -> int:
     _, mstep, mblock = phase_mega(device, dc)
     hot = phase_hotspot(device)
     seg["launches"] = hot["segment_sum"]["launches"]["segment_reduce"]
+    phase_capture(device)          # ends with the sweep cache cleared
     attn = phase_attention(device)
     serve = phase_serve(device, attn["decode_attention"]["ms"] * 1e3)
     attn["flash_attention"]["launches"] = serve["routes"]["tensor_core"]
@@ -2271,6 +2568,7 @@ def main() -> int:
                                   attn["flash_attention"],
                                   attn["flash_attention_cuda_core"],
                                   attn["decode_attention"]]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -176,7 +176,8 @@ def caches_from_numpy(cfg, tree, device=None) -> list:
     layers = _flat_layers(cfg, [_get_kv(c) for c in tree.get("head", [])],
                           tree.get("groups", {}),
                           [_get_kv(c) for c in tree.get("tail", [])], take)
-    return [KVCache(k=_leaf(k, device), v=_leaf(v, device), pos=int(pos))
+    return [KVCache(k=_leaf(k, device), v=_leaf(v, device),
+                    pos=_leaf(np.asarray(pos, np.int32), device))
             for k, v, pos in layers]
 
 
@@ -189,7 +190,8 @@ def caches_to_numpy(cfg, caches) -> dict:
 
     def one(c):
         f = lambda x: x.detach().float().cpu().numpy()  # noqa: E731
-        return KVCache(k=f(c.k), v=f(c.v), pos=np.int32(c.pos))
+        return KVCache(k=f(c.k), v=f(c.v),
+                       pos=np.asarray(c.pos.cpu().numpy(), np.int32))
 
     flat = [one(c) for c in caches]
     out = {"head": flat[:len(head)]}

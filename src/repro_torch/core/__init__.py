@@ -6,6 +6,9 @@ Public surface (as the reference's, for the ported slice):
   * topology / routing: the CLOS builders and the link incidence
   * fluid:       Scenario / FluidState / fluid_step / make_step_fn
   * simulator:   run / run_all_schemes / SimResult
+  * exec_cache:  CacheStats / ExecutableCache; experiments'
+                 SWEEP_EXEC_CACHE holds each batch structure's captured
+                 trace window
   * experiments: ScenarioSpec / Sweep / SweepResult / config_grid
   * scenarios / workloads: the reference's host-side builders
 """
@@ -22,8 +25,10 @@ from .fluid import (FluidState, Scenario, ScenarioDev, StepParams,
                     init_state, make_step_fn, scenario_device,
                     step_params)
 from .simulator import SimResult, run, run_all_schemes
-from .experiments import (ScenarioSpec, Sweep, SweepResult, config_grid,
-                          pad_scenario, stack_scenarios, trim_final)
+from .exec_cache import CacheStats, ExecutableCache
+from .experiments import (SWEEP_EXEC_CACHE, ScenarioSpec, Sweep,
+                          SweepResult, config_grid, pad_scenario,
+                          stack_scenarios, trim_final)
 from .scenarios import (PAPER_FLOW_NAMES, collective_flows, incast,
                         paper_incast, paper_incast_volume,
                         random_permutation)
@@ -39,7 +44,8 @@ __all__ = [
     "FluidState", "Scenario", "ScenarioDev", "StepParams", "delay_depth",
     "dense_reduce_rows", "fluid_step", "init_state", "make_step_fn",
     "scenario_device", "step_params", "SimResult", "run",
-    "run_all_schemes",
+    "run_all_schemes", "CacheStats", "ExecutableCache",
+    "SWEEP_EXEC_CACHE",
     "ScenarioSpec", "Sweep", "SweepResult", "config_grid",
     "pad_scenario", "stack_scenarios", "trim_final", "PAPER_FLOW_NAMES",
     "collective_flows", "incast", "paper_incast", "paper_incast_volume",

@@ -11,6 +11,11 @@
     ``use_kernels="mega"`` each trace window of the whole batch is ONE
     ``megastep_block`` launch (the run axis is the kernel's grid, where
     the reference vmaps).
+  * ``SWEEP_EXEC_CACHE`` — where ``Sweep.run`` finds its window runner,
+    as the reference finds its compiled executable: one
+    ``WindowExecutable`` per batch structure, on the card a CUDA graph
+    of one trace window over tensors the entry owns, replayed once a
+    window (``Sweep.prepare`` stays the eager API).
 
     from repro_torch.core import CCScheme, PAPER_CONFIG
     from repro_torch.core.experiments import ScenarioSpec, Sweep
@@ -29,9 +34,12 @@ import dataclasses
 from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 from ..kernels import fluid_step as mega
+from ..kernels.capture import CapturedGraph, warm_up
 from . import cc
+from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
                     _step_body, check_routing_paths, clamp_dense_rows,
                     delay_depth, dense_reduce_rows, init_state,
@@ -40,7 +48,8 @@ from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
 from .params import CCConfig, CCSpec
 from .routing import PAD, route_hops
 from .simulator import (SimResult, TraceSample, _resolve_steps,
-                        block_fn_for, decimating_scan)
+                        block_fn_for, copy_leaves, decimating_scan,
+                        flow_window)
 from .topology import Topology
 
 if TYPE_CHECKING:           # real import is lazy: repro_torch.net imports core
@@ -513,6 +522,189 @@ class Staged(NamedTuple):
     #                           TraceSample), one launch per trace window
 
 
+class WindowStatic(NamedTuple):
+    """The static configuration of one trace window: the reference's
+    static scan tuple without the scan depth (a window runner is replayed
+    ``n_samples`` times, so the depth does not change the program) and
+    without the megakernel's substep block (``trace_every`` on the mega
+    tier)."""
+
+    trace_every: int
+    dt: float
+    n_switches: int
+    reduce: str
+    dense_rows: int
+    tier: str                 # kernel_tier(use_kernels)
+    n_vcs: int
+
+
+class WindowInputs(NamedTuple):
+    """Every tensor one trace window of a staged batch reads: the state
+    it advances and the batch's constants."""
+
+    state: FluidState
+    sd: ScenarioDev
+    par: object               # StepParams
+    plan: ReducePlan
+    packed: dict              # cc.pack_react_rows of ``par``
+    mplan: object = None      # mega tier: the block's MegaPlan
+
+
+def window_fn(inp: WindowInputs, static: WindowStatic):
+    """``window(state) -> (state, TraceSample)``: one trace window over
+    ``inp``'s constants — ``trace_every`` steps folded on the device
+    (flow tiers), or one ``megastep_block`` launch (mega tier)."""
+    s = static
+    if s.tier == "mega":
+        return block_fn_for(inp.sd, inp.par, inp.plan, inp.packed,
+                            inp.mplan, n_switches=s.n_switches,
+                            n_vcs=s.n_vcs, trace_every=s.trace_every,
+                            dt=s.dt, reduce=s.reduce)
+
+    def step(st):
+        return _step_body(st, inp.sd, inp.par, inp.plan,
+                          n_switches=s.n_switches, reduce=s.reduce,
+                          n_vcs=s.n_vcs, packed_react=inp.packed)
+
+    return flow_window(step, s.trace_every, s.dt, s.n_vcs,
+                       inp.state.nicq.device)
+
+
+def _tree_map(fn, x):
+    """``fn`` over every tensor leaf of a NamedTuple / dict tree; other
+    leaves (None, the plans' Python ints) pass through."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*[_tree_map(fn, v) for v in x])
+    return x
+
+
+def _tensor_leaves(x, out: list) -> list:
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            _tensor_leaves(x[k], out)
+    elif hasattr(x, "_fields"):
+        for v in x:
+            _tensor_leaves(v, out)
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` leaf by leaf over two trees of one structure
+    (one launch a dtype, not one a leaf)."""
+    copy_leaves(_tensor_leaves(dst, []), _tensor_leaves(src, []))
+
+
+class WindowExecutable:
+    """One entry of ``SWEEP_EXEC_CACHE``: the trace window of one batch
+    structure, over static tensors the entry owns.
+
+    ``inputs`` is the entry's own copy of a batch's ``WindowInputs`` (never
+    a tensor of the caller's ``Staged`` or of the upload cache, which it
+    overwrites); ``bind`` copies another batch of the same structure into
+    it.  ``start(state)`` loads a run's initial state; each ``advance()``
+    runs one window, leaves the new state in ``state`` and returns the
+    window's ``TraceSample`` (rewritten by the next call).
+
+    On the card the entry is built from a run's inputs: that run's first
+    window runs eagerly on a side stream (the warm-up the capture needs,
+    real work: its sample is the first ``advance()``'s), then the second
+    is captured as a CUDA graph whose last ops copy the new state into
+    ``state``, and every later window is one replay.  A failed capture
+    raises.  On the CPU the same window runs eagerly over the same
+    tensors."""
+
+    def __init__(self, inputs: WindowInputs, static: WindowStatic):
+        self.inputs = _tree_map(torch.clone, inputs)
+        self.window = window_fn(self.inputs, static)
+        self.graph = None
+        self._first = None
+        if self.state.nicq.device.type == "cuda":
+            self._first = warm_up(self._run_window)
+            self.graph = CapturedGraph(self._run_window)
+
+    @property
+    def state(self) -> FluidState:
+        return self.inputs.state
+
+    @property
+    def capture_s(self) -> float:
+        return 0.0 if self.graph is None else self.graph.capture_s
+
+    def nbytes(self) -> int:
+        """Bytes of the static tensors the entry owns (its graph's pool
+        not counted)."""
+        return sum(t.numel() * t.element_size()
+                   for t in _tensor_leaves(self.inputs, []))
+
+    def _run_window(self):
+        st, sample = self.window(self.state)
+        _copy_into(self.state, st)
+        return sample
+
+    def bind(self, inputs: WindowInputs) -> None:
+        """Copy a batch of this entry's structure into its tensors (its
+        initial state comes with ``start``)."""
+        for f in WindowInputs._fields:
+            if f != "state":
+                _copy_into(getattr(self.inputs, f), getattr(inputs, f))
+        self._first = None
+
+    def start(self, st: FluidState) -> None:
+        """Load a run's initial state — unless the entry was just built
+        from that run, whose first window it has already advanced."""
+        if self._first is None:
+            _copy_into(self.state, st)
+
+    def advance(self):
+        if self._first is not None:
+            sample, self._first = self._first, None
+            return sample
+        if self.graph is None:
+            return self._run_window()
+        self.graph.replay()
+        return self.graph.out
+
+    def release(self) -> None:
+        """Free the graph, its memory pool and the owned tensors."""
+        if self.graph is not None:
+            self.graph.release()
+        self.graph = self._first = self.inputs = self.window = None
+
+
+#: The sweep-executable cache: every ``Sweep.run`` resolves its trace
+#: window runner here (a ``WindowExecutable``), keyed by the structural
+#: signature of its ``WindowStatic`` and ``WindowInputs``: the static
+#: configuration, every leaf's path, shape, dtype and device, and the
+#: plans' Python ints (the segment schedule's long items, the
+#: megakernel's launch geometry).  A module-level singleton, as in the
+#: reference, so its ``CacheStats`` can be read by whoever drives it.
+SWEEP_EXEC_CACHE = ExecutableCache(capacity=32, name="sweep")
+
+
+def _sweep_executable(static: WindowStatic,
+                      inputs: WindowInputs) -> WindowExecutable:
+    """Resolve one sweep launch to its cached window runner: a miss
+    builds (and, on the card, captures) one from ``inputs``; a hit binds
+    ``inputs`` into the entry's own tensors."""
+    built = []
+
+    def build():
+        built.append(WindowExecutable(inputs, static))
+        return built[0]
+
+    entry = SWEEP_EXEC_CACHE.get_or_build(
+        structural_signature(static, inputs), build)
+    if not built:
+        entry.bind(inputs)
+    return entry
+
+
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -590,19 +782,12 @@ class Sweep:
             pts.append((p.name, p.cfg, p.scenario))
         return Sweep(pts)
 
-    def prepare(self, n_steps: int | None = None,
-                trace_every: int | None = None, *, mesh=None,
-                reduce: str = "fused", use_kernels: "bool | str" = False,
-                pad_runs_to: int | None = None,
-                min_delay_slots: int | None = None,
-                dense_rows: int | None = None, temperature: float = 0.0,
-                min_switches: int | None = None, device=None):
-        """Stack, pad and stage the batch on the device; returns a
-        ``Staged`` whose ``step(state) -> (state, StepTrace)`` advances
-        every run one ``dt`` from the batched initial ``state`` (one
-        ``megastep`` launch with ``use_kernels="mega"``, which also
-        stages ``block``: one ``megastep_block`` launch per window).
-        """
+    def _prepare(self, n_steps, trace_every, *, mesh, reduce, use_kernels,
+                 pad_runs_to, min_delay_slots, dense_rows, temperature,
+                 min_switches, device):
+        """Stack, pad and stage the batch; returns ``(WindowStatic,
+        WindowInputs, n_samples)`` — everything a launch needs short of
+        the window runner.  Shared by ``prepare`` and ``run``."""
         _refuse_mesh(mesh)
         refuse_unported(reduce=reduce, use_kernels=use_kernels,
                         temperature=temperature)
@@ -631,29 +816,62 @@ class Sweep:
         plan = reduce_plan(sd_b, n_switches=n_sw, n_vcs=self.n_vcs,
                            dense_rows=dense_rows, dt=dt)
         packed = cc.pack_react_rows(par_b.react, par_b.line_rate, plan.dt)
-        n_vcs = self.n_vcs
+        tier = kernel_tier(use_kernels)
+        mplan = None
+        if tier == "mega":
+            mplan = mega.mega_plan(par_b, packed, plan.dt, sd=sd_b,
+                                   plan=plan, window=float(k * dt))
+        static = WindowStatic(
+            trace_every=k, dt=dt, n_switches=n_sw, reduce=reduce,
+            dense_rows=int(dense_rows), tier=tier, n_vcs=self.n_vcs)
+        return static, WindowInputs(state=st_b, sd=sd_b, par=par_b,
+                                    plan=plan, packed=packed,
+                                    mplan=mplan), n_samples
+
+    def prepare(self, n_steps: int | None = None,
+                trace_every: int | None = None, *, mesh=None,
+                reduce: str = "fused", use_kernels: "bool | str" = False,
+                pad_runs_to: int | None = None,
+                min_delay_slots: int | None = None,
+                dense_rows: int | None = None, temperature: float = 0.0,
+                min_switches: int | None = None, device=None):
+        """Stack, pad and stage the batch on the device; returns a
+        ``Staged`` whose ``step(state) -> (state, StepTrace)`` advances
+        every run one ``dt`` from the batched initial ``state`` (one
+        ``megastep`` launch with ``use_kernels="mega"``, which also
+        stages ``block``: one ``megastep_block`` launch per window).
+        This is the eager API: each call issues its launches from Python
+        (``decimating_scan`` over it is ``run``'s result, uncaptured).
+        """
+        static, inp, n_samples = self._prepare(
+            n_steps, trace_every, mesh=mesh, reduce=reduce,
+            use_kernels=use_kernels, pad_runs_to=pad_runs_to,
+            min_delay_slots=min_delay_slots, dense_rows=dense_rows,
+            temperature=temperature, min_switches=min_switches,
+            device=device)
+        sd_b, par_b, plan = inp.sd, inp.par, inp.plan
+        n_sw, n_vcs = static.n_switches, static.n_vcs
 
         def step(st):
             return _step_body(st, sd_b, par_b, plan, n_switches=n_sw,
-                              reduce=reduce, n_vcs=n_vcs,
-                              packed_react=packed)
+                              reduce=static.reduce, n_vcs=n_vcs,
+                              packed_react=inp.packed)
 
         block = None
-        if kernel_tier(use_kernels) == "mega":
+        if static.tier == "mega":
             body, mplan = step, mega.mega_plan(
-                par_b, packed, plan.dt, sd=sd_b, plan=plan)
+                par_b, inp.packed, plan.dt, sd=sd_b, plan=plan)
 
             def step(st):
                 return mega.megastep(st, sd_b, par_b, plan, mplan,
                                      body=body, n_switches=n_sw,
                                      n_vcs=n_vcs)
 
-            block = block_fn_for(sd_b, par_b, plan, n_switches=n_sw,
-                                 n_vcs=n_vcs, trace_every=k, dt=dt,
-                                 reduce=reduce)
-        return Staged(step=step, state=st_b, sd=sd_b, par=par_b,
-                      plan=plan, n_switches=n_sw, dense_rows=dense_rows,
-                      n_samples=n_samples, trace_every=k, block=block)
+            block = window_fn(inp, static)
+        return Staged(step=step, state=inp.state, sd=sd_b, par=par_b,
+                      plan=plan, n_switches=n_sw,
+                      dense_rows=static.dense_rows, n_samples=n_samples,
+                      trace_every=static.trace_every, block=block)
 
     def run(self, n_steps: int | None = None,
             trace_every: int | None = None, *, mesh=None,
@@ -666,6 +884,12 @@ class Sweep:
 
         ``device=None`` runs on the card and raises when there is none;
         pass ``device="cpu"`` to run on the CPU.
+
+        Each trace window runs through the batch structure's entry in
+        ``SWEEP_EXEC_CACHE``: on the card a CUDA graph captured on the
+        structure's first run and replayed once a window afterwards (the
+        same kernels in the same order as ``prepare``'s eager calls, so
+        the same bits); on the CPU the same window run eagerly.
 
         ``reduce``: ``"fused"`` (default: the dense-CSR walk, or the
         ``segment_reduce`` kernel on the card where a queue is too
@@ -682,28 +906,37 @@ class Sweep:
         ``min_switches`` pin the batch geometry as in the reference;
         results are unaffected (padding runs are dropped on return).
         """
-        from ..convert import state_to_numpy
-        stg = self.prepare(
+        static, inp, n_samples = self._prepare(
             n_steps, trace_every, mesh=mesh, reduce=reduce,
             use_kernels=use_kernels, pad_runs_to=pad_runs_to,
             min_delay_slots=min_delay_slots, dense_rows=dense_rows,
             temperature=temperature, min_switches=min_switches,
             device=device)
+        runner = _sweep_executable(static, inp)
+        final, tr = decimating_scan(None, inp.state, n_samples,
+                                    static.trace_every, static.dt,
+                                    self.n_vcs, runner=runner)
+        return self.collect(final, tr, static.trace_every)
+
+    def collect(self, final: FluidState, traces: TraceSample,
+                trace_every: int) -> "SweepResult":
+        """A scan of this sweep's batch (``decimating_scan``'s final
+        state and ``[T, R, ...]`` traces) pulled to the host as a
+        ``SweepResult``; padding runs are dropped."""
+        from ..convert import state_to_numpy
         R = len(self.points)
-        n_samples, k = stg.n_samples, stg.trace_every
-        final, tr = decimating_scan(stg.step, stg.state, n_samples, k,
-                                    float(self.points[0].cfg.sim.dt),
-                                    self.n_vcs, block_fn=stg.block)
-        times = (np.arange(n_samples) + 1) * k * self.points[0].cfg.sim.dt
+        n_samples = traces.delivered.shape[0]
+        times = (np.arange(n_samples) + 1) * trace_every \
+            * self.points[0].cfg.sim.dt
         # samples stack on axis 0 -> [T, R, ...]; runs lead on host
-        traces = TraceSample(*[np.moveaxis(x.cpu().numpy(), 0, 1)[:R]
-                               for x in tr])
+        host = TraceSample(*[np.moveaxis(x.cpu().numpy(), 0, 1)[:R]
+                             for x in traces])
         fin = state_to_numpy(final)
         fin = FluidState(*[x[:R] for x in fin[:-2]],
                          cc={kk: v[:R] for kk, v in fin.cc.items()},
                          t=fin.t[:R])
-        return SweepResult(points=self.points, times=times, traces=traces,
-                           final=fin, trace_every=k)
+        return SweepResult(points=self.points, times=times, traces=host,
+                           final=fin, trace_every=trace_every)
 
 
 def trim_final(fin: FluidState, F: int) -> FluidState:

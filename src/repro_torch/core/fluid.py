@@ -402,10 +402,39 @@ def scenario_arrays(scn: Scenario, n_vcs: int = 1) -> dict:
         pool_seg=pool_seg.astype(np.int64))
 
 
+# Content-keyed device-placement cache (the reference's ``_cached_put``).
+# A sweep's grid points mostly share a FabricSpec, and a repeated batch
+# structure stacks the same routes, capacities and incidence again:
+# hashing is cheaper than uploading them anew.  Keys carry shape, dtype,
+# digest and device, so two different tensors never alias.  Bounded LRU:
+# a long-lived process sweeping many fabrics cannot leak device memory.
+# The cached tensors are shared by every batch that stacks the same
+# content, so nothing may write into them (the sweep's window runners
+# copy them into tensors of their own).
+_PUT_CACHE: "collections.OrderedDict[tuple, torch.Tensor]" = \
+    collections.OrderedDict()
+_PUT_CACHE_SIZE = 256
+#: the ``ScenarioDev`` fields the reference places through the cache
+_PUT_FIELDS = ("alt_routes", "alt_hops", "vc", "cap_ext", "sink_ext",
+               "jitter", "red_perm", "red_seg", "red_off", "pool_perm",
+               "pool_seg")
+
+
+def _cached_put(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    x = np.ascontiguousarray(x)
+    return _memo_lru(_PUT_CACHE, _PUT_CACHE_SIZE, _digest(x) + (device,),
+                     lambda: torch.from_numpy(x).to(device))
+
+
 def _upload(cls, arrays: list[dict], device):
-    """Stack per-run numpy dicts into one batched NamedTuple on device."""
-    return cls(**{f: torch.from_numpy(np.stack([a[f] for a in arrays]))
-                  .to(device) for f in cls._fields})
+    """Stack per-run numpy dicts into one batched NamedTuple on device
+    (``_PUT_FIELDS`` through the content-keyed cache)."""
+    def put(f):
+        x = np.stack([a[f] for a in arrays])
+        if f in _PUT_FIELDS:
+            return _cached_put(x, device)
+        return torch.from_numpy(x).to(device)
+    return cls(**{f: put(f) for f in cls._fields})
 
 
 def scenario_device(scn: Scenario, n_vcs: int = 1, *,

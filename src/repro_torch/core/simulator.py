@@ -4,7 +4,9 @@
 Python loop and folds the steps into trace windows on the device (one
 ``TraceSample`` per ``trace_every`` steps); only the decimated samples
 come back to the host.  With ``use_kernels="mega"`` a whole window is
-one ``megastep_block`` launch instead (``make_block_fn``).  ``run``
+one ``megastep_block`` launch instead (``make_block_fn``).  Given a
+window runner (``Sweep.run``'s cache entry) it replays one captured
+window at a time instead.  ``run``
 drives one (scenario, config) point as a batch of one; batched sweeps
 live in ``experiments.py`` and share the same loop.  ``SimResult`` and its metrics are the reference's, verbatim.
 """
@@ -88,9 +90,40 @@ def _window_sample(st: FluidState, d0, acc, window: torch.Tensor
         ctrl=ct, pause_time=pt, vc_stall=vs)
 
 
+def copy_leaves(dsts: list, srcs: list) -> None:
+    """``d.copy_(s)`` for each pair, as one multi-tensor copy a dtype
+    (``torch._foreach_copy_`` takes its fast path only when every
+    tensor of a call has one dtype)."""
+    groups: dict = {}
+    for d, s in zip(dsts, srcs):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def flow_window(step, trace_every: int, dt: float, n_vcs: int, device):
+    """``window(state) -> (state, TraceSample)``: ``trace_every`` calls
+    of ``step`` folded into one sample on the device (the flow tiers'
+    trace window)."""
+    window = torch.tensor(trace_every * dt, dtype=torch.float32,
+                          device=device)
+
+    def run(st: FluidState):
+        d0 = st.delivered
+        acc = _zero_accum(st, n_vcs)
+        for _ in range(trace_every):
+            st, tr = step(st)
+            acc = _acc_update(acc, tr)
+        return st, _window_sample(st, d0, acc, window)
+
+    return run
+
+
 def decimating_scan(step, st: FluidState, n_samples: int,
                     trace_every: int, dt: float, n_vcs: int = 1, *,
-                    block_fn=None):
+                    block_fn=None, runner=None):
     """Run ``n_samples * trace_every`` steps, emitting one TraceSample
     per ``trace_every`` steps.  Returns ``(final state, TraceSample of
     [T, R, ...] tensors)``, all still on the state's device.
@@ -98,35 +131,46 @@ def decimating_scan(step, st: FluidState, n_samples: int,
     ``block_fn(state) -> (state, TraceSample)`` replaces the per-step
     loop with one call per trace window (the megakernel's whole-window
     launch); ``step`` / ``trace_every`` / ``dt`` / ``n_vcs`` are unused
-    then (the block closes over them)."""
+    then (the block closes over them).
+
+    ``runner`` (a ``core.experiments.WindowExecutable``, the sweep's
+    cached window) replaces both: ``runner.start(st)`` loads the initial
+    state into its own tensors and each ``runner.advance()`` runs one
+    window there (a CUDA-graph replay on the card) and returns its
+    sample, which is copied into preallocated ``[T, R, ...]`` buffers.
+    The final state is returned as a copy of the runner's."""
+    if runner is not None:
+        runner.start(st)
+        out = None
+        for i in range(n_samples):
+            sample = runner.advance()
+            if out is None:
+                out = TraceSample(*[x.new_empty((n_samples,) + x.shape)
+                                    for x in sample])
+            copy_leaves([buf[i] for buf in out], list(sample))
+        final = runner.state
+        return FluidState(*[x.clone() for x in final[:-2]],
+                          cc={k: v.clone() for k, v in final.cc.items()},
+                          t=final.t.clone()), out
+    window = block_fn or flow_window(step, trace_every, dt, n_vcs,
+                                     st.nicq.device)
     samples = []
-    if block_fn is not None:
-        for _ in range(n_samples):
-            st, sample = block_fn(st)
-            samples.append(sample)
-        return st, TraceSample(*[torch.stack(f) for f in zip(*samples)])
-    window = torch.tensor(trace_every * dt, dtype=torch.float32,
-                          device=st.nicq.device)
     for _ in range(n_samples):
-        d0 = st.delivered
-        acc = _zero_accum(st, n_vcs)
-        for _ in range(trace_every):
-            st, tr = step(st)
-            acc = _acc_update(acc, tr)
-        samples.append(_window_sample(st, d0, acc, window))
+        st, sample = window(st)
+        samples.append(sample)
     return st, TraceSample(*[torch.stack(f) for f in zip(*samples)])
 
 
-def block_fn_for(sd, par, plan, *, n_switches: int, n_vcs: int,
-                 trace_every: int, dt: float, reduce: str = "fused"):
+def block_fn_for(sd, par, plan, packed: dict, mplan, *, n_switches: int,
+                 n_vcs: int, trace_every: int, dt: float,
+                 reduce: str = "fused"):
     """``block(state) -> (state, TraceSample)``: one ``megastep_block``
     launch per trace window of a staged batch (on the CPU its plain
-    version: the port's step and the host's window fold)."""
-    packed = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
+    version: the port's step and the host's window fold); ``packed`` is
+    ``cc.pack_react_rows(par...)``, ``mplan`` the batch's ``mega_plan``
+    with this window's length."""
     window = torch.tensor(trace_every * dt, dtype=torch.float32,
                           device=plan.dt.device)
-    mplan = mega.mega_plan(par, packed, plan.dt, sd=sd, plan=plan,
-                           window=float(trace_every * dt))
 
     def body(s):
         return _step_body(s, sd, par, plan, n_switches=n_switches,
@@ -162,8 +206,12 @@ def make_block_fn(scn: Scenario, cfg: CCConfig, trace_every: int, *,
     plan = reduce_plan(sd, n_switches=n_sw, n_vcs=n_vcs,
                        dense_rows=dense_rows if reduce == "fused" else 0,
                        dt=float(cfg.sim.dt))
-    return block_fn_for(sd, par, plan, n_switches=n_sw, n_vcs=n_vcs,
-                        trace_every=trace_every, dt=float(cfg.sim.dt),
+    dt = float(cfg.sim.dt)
+    packed = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
+    mplan = mega.mega_plan(par, packed, plan.dt, sd=sd, plan=plan,
+                           window=float(trace_every * dt))
+    return block_fn_for(sd, par, plan, packed, mplan, n_switches=n_sw,
+                        n_vcs=n_vcs, trace_every=trace_every, dt=dt,
                         reduce=reduce)
 
 

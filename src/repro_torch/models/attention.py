@@ -3,13 +3,15 @@ of ``repro.models.attention``; ``cross_attention`` and ``encode_kv`` wait
 with the encoder-decoder port).
 
 KV cache layout: ``k, v: [batch, cache_len, n_kv, head_dim]`` plus
-``pos``, the absolute number of tokens already cached (a Python int:
-every row of a batch shares it, as in the reference).  For
-sliding-window layers the cache is a ring buffer of
-``min(max_len, window)`` slots.  Unlike the reference's functional
-updates, the port writes a cache's tensors in place (``_cache_write_*``
-return a ``KVCache`` over the same storage), so a serving step does not
-copy every layer's cache.
+``pos``, the absolute number of tokens already cached: a ``[]`` int32
+tensor on the cache's device, shared by every row of a batch, as in the
+reference.  Nothing on the decode path reads it on the host, so a
+serving step can be captured as a CUDA graph.  For sliding-window layers
+the cache is a ring buffer of ``min(max_len, window)`` slots.  Unlike
+the reference's functional updates, the port writes a cache's ``k`` and
+``v`` in place (``_cache_write_*`` return a ``KVCache`` over the same
+storage and a new ``pos``), so a serving step does not copy every
+layer's cache.
 
 With ``cfg.use_pallas`` attention runs through ``kernels.ops``: the CUDA
 kernels on the card, their plain versions on the CPU.  Without it,
@@ -34,7 +36,7 @@ LOCAL_KINDS = ("local", "moe_local")
 class KVCache(NamedTuple):
     k: torch.Tensor       # [b, cache_len, n_kv, head_dim]
     v: torch.Tensor
-    pos: int              # absolute tokens already cached
+    pos: torch.Tensor     # [] int32: absolute tokens already cached
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
@@ -60,7 +62,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
     length = min(max_len, cfg.window) if kind in LOCAL_KINDS else max_len
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -222,13 +225,16 @@ def _cache_write_prefill(cache: KVCache, k, v, kind: str,
 
 def _cache_write_step(cache: KVCache, k, v, kind: str,
                       cfg: ModelConfig) -> KVCache:
+    """Write the token's K/V at its slot, chosen on the device from
+    ``cache.pos`` (no host read)."""
     clen = cache.k.shape[1]
     if kind in LOCAL_KINDS:
         slot = cache.pos % clen
     else:
-        slot = min(cache.pos, clen - 1)
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
+        slot = torch.clamp(cache.pos, max=clen - 1)
+    slot = slot.reshape(1).long()
+    cache.k.index_copy_(1, slot, k)
+    cache.v.index_copy_(1, slot, v)
     return KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
 
 
@@ -239,7 +245,7 @@ def _decode_mask(cache: KVCache, kind: str, cfg: ModelConfig):
     if kind in LOCAL_KINDS:
         newest = (cache.pos - 1) % clen
         age = (newest - idx) % clen                  # 0 = newest
-        valid = age < min(cache.pos, clen)
+        valid = age < torch.clamp(cache.pos, max=clen)
     else:
         valid = idx < cache.pos
     return valid[None, :]

@@ -128,7 +128,8 @@ def embed_lookup(p: dict, ids: torch.Tensor, scale: bool,
                  d: int) -> torch.Tensor:
     x = p["table"][ids]
     if scale:
-        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+        # a device fill, not a host copy: capturable in a CUDA graph
+        x = x * torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
 
 

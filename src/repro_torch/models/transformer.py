@@ -12,6 +12,7 @@ Entry points:
   * forward(params, cfg, tokens)             — logits
   * prefill(params, cfg, tokens, max_len)    — last logits + caches
   * decode_step(params, cfg, token, caches, pos) — one-token serve step
+    (``pos`` a [] int32 tensor, as in the reference)
   * init_caches(cfg, batch, max_len, dtype, device)
 
 The other block kinds (``moe_*``, ``dense_attn``, ``ssm``, ``rec``) and
@@ -32,7 +33,7 @@ from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
 #: the block kinds this port runs
 PORTED_KINDS = ("attn", "local")
 
-_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 1 (the MoE, SSM, "
+_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 5 (the MoE, SSM, "
              "RG-LRU, encoder-decoder and VLM models)")
 
 
@@ -143,11 +144,22 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
                         cfg.tie_embeddings, cfg.softcap_final)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
-    """Prefill: fills caches, returns last-position logits + caches."""
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+            caches: Optional[list] = None):
+    """Prefill: fills caches, returns last-position logits + caches.
+
+    ``caches`` (``init_caches(cfg, b, max_len, ...)``'s shapes) are
+    zeroed and written in place instead of allocating a new set; the
+    returned caches share their ``k``/``v`` storage."""
     x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     b, t = x.shape[:2]
-    caches = init_caches(cfg, b, max_len, x.dtype, x.device)
+    if caches is None:
+        caches = init_caches(cfg, b, max_len, x.dtype, x.device)
+    else:
+        for c in caches:
+            c.k.zero_()
+            c.v.zero_()
+            c.pos.zero_()
     x, caches = _trunk(params, cfg, x, _positions(b, t, 0, x.device),
                        caches)
     logits = apply_logits(params["logits"], params["embed"], x[:, -1:],
@@ -156,13 +168,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
-                pos: int):
-    """One serve step: token [b, 1] at position ``pos`` -> (logits
-    [b, 1, vocab], caches).  The caches are updated in place."""
+                pos: torch.Tensor):
+    """One serve step: token [b, 1], pos [] int32 (on the token's
+    device) -> (logits [b, 1, vocab], caches).  The caches' ``k``/``v``
+    are updated in place; each returned cache carries ``pos + 1``.  No
+    host read, so the step can be captured as a CUDA graph."""
     x = embed_lookup(params["embed"], token, cfg.embed_scale, cfg.d_model)
     b = x.shape[0]
-    x, caches = _trunk(params, cfg, x, _positions(b, 1, int(pos), x.device),
-                       caches)
+    positions = pos.to(torch.int32).expand(b, 1)
+    x, caches = _trunk(params, cfg, x, positions, caches)
     logits = apply_logits(params["logits"], params["embed"], x,
                           cfg.tie_embeddings, cfg.softcap_final)
     return logits, caches

@@ -1,14 +1,21 @@
 """Batched serving: continuous-batching engine over prefill/decode steps
 (port of ``repro.serve.engine``).
 
-``ServingEngine`` is the host-side request manager: slot-based
+``make_serve_step`` / ``make_prefill`` are the reference's step
+builders.  ``ServingEngine`` is the host-side request manager: slot-based
 continuous batching (a finished sequence's slot is refilled by the next
 queued request without stopping the batch), greedy or temperature
 sampling.  The model runs on the engine's device (the card unless
 ``device="cpu"``); sampling stays on the host in numpy with the
 reference's ``RandomState(0)``, so greedy tokens can equal the
-reference's.  Caches are per-layer ``KVCache`` tensors with the batch on
-axis 0, updated in place by each step.
+reference's.
+
+Where the reference jits its step once, the engine captures its decode
+step once as a CUDA graph (on the card): the caches are the engine's own
+per-layer ``KVCache`` tensors (batch on axis 0), allocated by its first
+joint prefill and rewritten in place by every later one, so the graph
+always reads the same storage; its inputs are the token tensor and the
+device position ``pos``.  Prefill is not captured.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.fluid import resolve_device
+from ..kernels.capture import CapturedGraph, warm_up
 from ..models import transformer
 from ..models.attention import KVCache
 from ..models.config import ModelConfig
@@ -30,6 +38,22 @@ class ServeConfig:
     max_len: int = 2048
     temperature: float = 0.0      # 0 = greedy
     eos_token: int = 1
+
+
+def make_serve_step(cfg: ModelConfig):
+    """(params, token [b,1], caches, pos []) -> (logits, caches)."""
+    def serve_step(params, token, caches, pos):
+        return transformer.decode_step(params, cfg, token, caches, pos)
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, max_len: int):
+    """(params, tokens [b,t], caches=None) -> (logits, caches); given
+    caches are rewritten in place (``transformer.prefill``)."""
+    def prefill(params, tokens, caches=None):
+        return transformer.prefill(params, cfg, tokens, max_len,
+                                   caches=caches)
+    return prefill
 
 
 class ServingEngine:
@@ -46,7 +70,12 @@ class ServingEngine:
     same left padding.
 
     ``params`` must lie on ``device`` (``None`` = the card; raises
-    without one unless ``device="cpu"``).
+    without one unless ``device="cpu"``).  On the card the first decode
+    step runs eagerly on a side stream (the capture's warm-up) and is
+    then captured; every later step, in this and later ``generate``
+    calls, is one replay (``captures`` counts captures: one an engine).
+    A failed capture raises.  The host's ``pos`` makes the scheduling
+    decisions; the device ``pos`` is what the step reads.
     """
 
     def __init__(self, cfg: ModelConfig, params, sv: ServeConfig,
@@ -60,20 +89,56 @@ class ServingEngine:
         self.cfg, self.params, self.sv = cfg, params, sv
         self.rng = np.random.RandomState(0)
         self.stats = {"prefills": 0, "refills": 0, "decode_steps": 0}
+        self._serve_step = make_serve_step(cfg)
+        self._prefill_fn = make_prefill(cfg, sv.max_len)
+        # the decode step's inputs: the engine's caches (every layer's
+        # ``pos`` is ``_pos``), the token and the position
+        self._caches = None
+        self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._token = torch.zeros((sv.batch_slots, 1), dtype=torch.int32,
+                                  device=self.device)
+        self._graph = None
+        self.captures = 0
 
     # -- model calls --------------------------------------------------------
     @torch.no_grad()
-    def _prefill(self, grid: np.ndarray):
+    def _prefill(self, grid: np.ndarray, into=None):
+        """Prefill ``grid``; ``into`` = the engine's caches (a joint
+        prefill rewrites them), None = a fresh set (a refill's)."""
         tokens = torch.from_numpy(grid).to(self.device)
-        return transformer.prefill(self.params, self.cfg, tokens,
-                                   self.sv.max_len)
+        return self._prefill_fn(self.params, tokens, into)
+
+    def _joint_prefill(self, grid: np.ndarray):
+        """Restart the grid: prefill into the engine's caches (the first
+        one allocates them) and set the device position."""
+        logits, fresh = self._prefill(grid, self._caches)
+        if self._caches is None:
+            self._caches = [KVCache(k=c.k, v=c.v, pos=self._pos)
+                            for c in fresh]
+        self._pos.copy_(fresh[0].pos)
+        return logits
+
+    def _decode(self):
+        logits, new = self._serve_step(self.params, self._token,
+                                       self._caches, self._pos)
+        self._pos.copy_(new[0].pos)
+        return logits
 
     @torch.no_grad()
-    def _step(self, cur: np.ndarray, caches, pos: int):
-        token = torch.from_numpy(
-            np.ascontiguousarray(cur[:, None], np.int32)).to(self.device)
-        return transformer.decode_step(self.params, self.cfg, token, caches,
-                                       pos)
+    def _step(self, cur: np.ndarray):
+        """One decode step of every slot from tokens ``cur`` [B]; the
+        logits (on the card: the graph's output, rewritten next step)."""
+        self._token.copy_(torch.from_numpy(
+            np.ascontiguousarray(cur[:, None], np.int32)))
+        if self.device.type != "cuda":
+            return self._decode()
+        if self._graph is None:
+            logits = warm_up(self._decode)        # this step, for real
+            self._graph = CapturedGraph(self._decode)
+            self.captures += 1
+            return logits
+        self._graph.replay()
+        return self._graph.out
 
     # -- scheduling ---------------------------------------------------------
     def generate(self, prompts: list[list[int]],
@@ -93,7 +158,6 @@ class ServingEngine:
         self.stats = {"prefills": 0, "refills": 0, "decode_steps": 0}
         slot_id = np.full((B,), -1, np.int64)    # request id, -1 = free
         remaining = np.zeros((B,), np.int64)     # decode budget per slot
-        caches = None
         cur = np.zeros((B,), np.int32)           # token for position `pos`
         pos = 0
 
@@ -105,8 +169,7 @@ class ServingEngine:
                 grid = np.zeros((B, plen), np.int32)
                 for i, (_, t) in enumerate(wave):
                     grid[i, plen - len(t):] = t           # left-pad
-                caches = None                 # free the retired grid's
-                logits, caches = self._prefill(grid)
+                logits = self._joint_prefill(grid)
                 last = self._sample(logits[:, -1].cpu().numpy())
                 pos, cur = plen, last
                 self.stats["prefills"] += 1
@@ -130,8 +193,8 @@ class ServingEngine:
                     grid[slot, pos - len(t):] = t
                 logits, fresh = self._prefill(grid)
                 last = self._sample(logits[:, -1].cpu().numpy())
-                caches = self._scatter_rows(caches, fresh,
-                                            [s for s, _ in fill])
+                self._scatter_rows(self._caches, fresh,
+                                   [s for s, _ in fill])
                 del fresh
                 self.stats["refills"] += len(fill)
                 for slot, (rid, _) in fill:
@@ -147,7 +210,7 @@ class ServingEngine:
             if pos >= sv.max_len - 1:            # out of cache room:
                 slot_id[:] = -1                  # retire the whole grid
                 continue
-            logits, caches = self._step(cur, caches, pos)
+            logits = self._step(cur)
             nxt = self._sample(logits[:, 0].cpu().numpy())
             pos += 1
             self.stats["decode_steps"] += 1
@@ -160,17 +223,14 @@ class ServingEngine:
             cur = nxt
         return [outputs[i] for i in range(len(prompts))]
 
-    def _scatter_rows(self, live, fresh, slots: list[int]):
+    def _scatter_rows(self, live, fresh, slots: list[int]) -> None:
         """Copy ``slots``' rows of every layer's cache from ``fresh`` into
         ``live`` (in place; batch is axis 0 of every cache tensor).  The
         position counter stays live's."""
         rows = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-        out = []
         for lc, fc in zip(live, fresh):
             lc.k[rows] = fc.k[rows]
             lc.v[rows] = fc.v[rows]
-            out.append(KVCache(k=lc.k, v=lc.v, pos=lc.pos))
-        return out
 
     def _generate_waves(self, prompts: list[list[int]],
                         max_new_tokens: int = 32) -> list[list[int]]:
@@ -190,8 +250,7 @@ class ServingEngine:
             grid = np.zeros((B, plen), np.int32)
             for i, t in enumerate(toks):
                 grid[i, plen - len(t):] = t       # left-pad
-            caches = None                     # free the last wave's
-            logits, caches = self._prefill(grid)
+            logits = self._joint_prefill(grid)
             last = self._sample(logits[:, -1].cpu().numpy())
             alive = np.zeros((B,), bool)
             alive[:len(wave)] = True
@@ -203,7 +262,7 @@ class ServingEngine:
             for _ in range(max_new_tokens - 1):
                 if not alive.any() or pos >= sv.max_len - 1:
                     break
-                logits, caches = self._step(cur, caches, pos)
+                logits = self._step(cur)
                 nxt = self._sample(logits[:, 0].cpu().numpy())
                 for i in range(len(wave)):
                     if alive[i]:

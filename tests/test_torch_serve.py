@@ -24,6 +24,7 @@ from repro.models import transformer as T_R                 # noqa: E402
 from repro.models.layers import init_params as init_R       # noqa: E402
 from repro.serve import ServeConfig as ServeConfig_R        # noqa: E402
 from repro.serve import ServingEngine as Engine_R           # noqa: E402
+from repro.serve import engine as engine_R                  # noqa: E402
 from repro_torch import convert                             # noqa: E402
 from repro_torch.configs import get_smoke_config            # noqa: E402
 from repro_torch.launch import serve as launch_serve        # noqa: E402
@@ -31,6 +32,7 @@ from repro_torch.models import ModelConfig                  # noqa: E402
 from repro_torch.models import transformer as T_P           # noqa: E402
 from repro_torch.models.layers import init_params           # noqa: E402
 from repro_torch.serve import ServeConfig, ServingEngine    # noqa: E402
+from repro_torch.serve import engine as engine_P            # noqa: E402
 
 #: the reference's tiny serving config (tests/test_train_serve.py)
 CFG = ModelConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
@@ -133,3 +135,47 @@ def test_engine_refuses_params_on_another_device():
     params = init_params(T_P.param_defs(CFG), 0, device="cpu")
     with pytest.raises(ValueError, match="params on"):
         ServingEngine(CFG, params, ServeConfig(), device="meta")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_step_builders_match_reference(use_pallas):
+    """``make_prefill`` / ``make_serve_step`` (what the engine runs)
+    against the reference's, jitted as its engine jits them: a prefill,
+    then 10 greedy steps past gemma2's window of 16 with ``pos`` a device
+    tensor; a second prefill rewriting the used caches in place equals a
+    prefill into fresh ones, bit for bit."""
+    arch = "gemma2-27b"
+    cfg_r = dataclasses.replace(smoke_R(arch), use_pallas=use_pallas)
+    cfg_p = dataclasses.replace(get_smoke_config(arch), use_pallas=use_pallas)
+    params_r = init_R(T_R.param_defs(cfg_r), 0, jnp.float32)
+    params_p = convert.params_from_numpy(
+        cfg_p, jax.tree.map(np.asarray, params_r), device="cpu")
+    max_len = 40
+    prefill_r = jax.jit(engine_R.make_prefill(cfg_r, max_len))
+    step_r = jax.jit(engine_R.make_serve_step(cfg_r))
+    prefill_p = engine_P.make_prefill(cfg_p, max_len)
+    step_p = engine_P.make_serve_step(cfg_p)
+    toks = np.random.RandomState(7).randint(2, cfg_r.vocab, (3, 12)) \
+        .astype(np.int32)
+    lr, cr = prefill_r(params_r, jnp.asarray(toks))
+    lp, cp = prefill_p(params_p, torch.from_numpy(toks))
+    got, want = [lp[:, -1].argmax(-1)], [np.asarray(lr)[:, -1].argmax(-1)]
+    pos = torch.tensor(12, dtype=torch.int32)
+    for p in range(12, 22):
+        cur = want[-1].astype(np.int32)
+        lr, cr = step_r(params_r, jnp.asarray(cur[:, None]), cr,
+                        jnp.asarray(p, jnp.int32))
+        lp, cp = step_p(params_p, torch.from_numpy(cur[:, None]), cp, pos)
+        pos = cp[0].pos
+        want.append(np.asarray(lr)[:, 0].argmax(-1))
+        got.append(lp[:, 0].argmax(-1))
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert int(pos) == 22
+    other = np.random.RandomState(8).randint(2, cfg_r.vocab, (3, 20)) \
+        .astype(np.int32)
+    l_into, c_into = prefill_p(params_p, torch.from_numpy(other), cp)
+    l_new, c_new = prefill_p(params_p, torch.from_numpy(other))
+    assert torch.equal(l_into, l_new)
+    for a, b, used in zip(c_into, c_new, cp):
+        assert a.k is used.k and torch.equal(a.k, b.k)
+        assert torch.equal(a.v, b.v) and torch.equal(a.pos, b.pos)

@@ -87,7 +87,8 @@ def test_prefill_and_decode_match_reference(arch, use_pallas):
         lr, cr = step_r(params_r, cfg_r, jnp.asarray(cur[:, None]), cr,
                         jnp.asarray(pos, jnp.int32))
         lp, cp = T_P.decode_step(params_p, cfg_p,
-                                 torch.from_numpy(cur[:, None]), cp, pos)
+                                 torch.from_numpy(cur[:, None]), cp,
+                                 torch.tensor(pos, dtype=torch.int32))
         _close(lp.numpy(), lr, f"decode logits at {pos}")
         cur = np.asarray(lr)[:, 0].argmax(-1).astype(np.int32)
     for i, (a, b) in enumerate(zip(_cache_leaves(
@@ -97,7 +98,7 @@ def test_prefill_and_decode_match_reference(arch, use_pallas):
     # the caches round-trip through the reference's nesting
     back = convert.caches_from_numpy(
         cfg_p, convert.caches_to_numpy(cfg_p, cp), device="cpu")
-    assert all(torch.equal(a.k, b.k) and a.pos == b.pos
+    assert all(torch.equal(a.k, b.k) and torch.equal(a.pos, b.pos)
                for a, b in zip(back, cp))
 
 
@@ -188,3 +189,38 @@ def test_params_from_numpy_keeps_bfloat16():
     assert wq.dtype == torch.bfloat16
     np.testing.assert_array_equal(wq.view(torch.int16).numpy(),
                                   want.view(np.int16))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_decode_with_tensor_pos_past_the_ring_wrap(use_pallas):
+    """``KVCache.pos`` is a [] int32 tensor, as in the reference: from the
+    reference's prefill caches carried by ``convert.caches_from_numpy``,
+    12 decode steps from position 10 run past gemma2's window of 16 (each
+    local layer's ring wraps during decode), the reference fed a
+    ``jnp.int32`` pos and the port a tensor, the same tokens both sides."""
+    cfg_r, params_r, cfg_p, params_p = _models("gemma2-27b", use_pallas)
+    assert cfg_p.window == 16
+    prompt, steps = 10, 12
+    toks = np.random.RandomState(6).randint(
+        2, cfg_r.vocab, (2, prompt)).astype(np.int32)
+    step_r = jax.jit(T_R.decode_step, static_argnums=1)
+    lr, cr = jax.jit(T_R.prefill, static_argnums=(1, 3))(
+        params_r, cfg_r, jnp.asarray(toks), MAX_LEN)
+    cp = convert.caches_from_numpy(cfg_p, jax.tree.map(np.asarray, cr),
+                                   device="cpu")
+    assert all(c.pos.dtype == torch.int32 and c.pos.dim() == 0
+               and int(c.pos) == prompt for c in cp)
+    cur = np.asarray(lr)[:, -1].argmax(-1).astype(np.int32)
+    for pos in range(prompt, prompt + steps):
+        lr, cr = step_r(params_r, cfg_r, jnp.asarray(cur[:, None]), cr,
+                        jnp.int32(pos))
+        lp, cp = T_P.decode_step(params_p, cfg_p,
+                                 torch.from_numpy(cur[:, None]), cp,
+                                 torch.tensor(pos, dtype=torch.int32))
+        _close(lp.numpy(), lr, f"decode logits at {pos}")
+        cur = np.asarray(lr)[:, 0].argmax(-1).astype(np.int32)
+    assert all(int(c.pos) == prompt + steps for c in cp)
+    for i, (a, b) in enumerate(zip(_cache_leaves(
+            convert.caches_to_numpy(cfg_p, cp)), _cache_leaves(
+            jax.tree.map(np.asarray, cr)))):
+        _close(a, b, f"decoded cache leaf {i}")
