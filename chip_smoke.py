@@ -97,7 +97,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
                both paths;
  13. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
                card and on the CPU: equal tokens (CUDA-core route); the
-               serving launcher's ``--smoke`` run on the card.
+               serving launcher's ``--smoke`` run on the card;
+ 14. tune    — the autotuning path (``repro_torch.tune``): the paper sweep
+               at temperature 0 bitwise the default run (a cache hit, the
+               same launches); the soft model at tau 0.2 on the card within
+               2e-3 of the CPU, and the kernel tiers refusing it;
+               ``value_and_grad`` on paper-default DCQCN at the 8-sender
+               incast, 3000 steps: twice bitwise, against the CPU (value
+               2e-3, gradient cosine 0.99), gen_np / rp / segment_reduce
+               launched at their exact counts in the forward and nothing in
+               the backward, forward and backward ms a step, peak memory,
+               idle share; each kernel's autograd rule bitwise equal to
+               its plain version's gradient; ``autotune`` by ES at
+               benchmarks/tune_bench.py's ES_KW (improved, one capture a
+               population shape) and by gradient at the acceptance
+               settings with iters cut to fit; a GradTuner killed after 2
+               iterations and resumed bitwise equal to 4 straight.
 Kernel launch counts are zeroed just before each path's run and read
 just after; every path asserts each of its kernels' exact count, and
 flash_attention's exact count on each route.
@@ -1771,7 +1786,7 @@ def _flex_call(qT, kT, vT, *, window, valid):
 #: positions, gemma2's heads, float32, softcap 50), its global and its
 #: local layer; then recurrentgemma-9b's local attention in bfloat16
 #: (16/1 heads, d 256, window 2048, no softcap), the route's bf16 work at
-#: a real width (ROADMAP Queue 1 item 5)
+#: a real width (ROADMAP Queue 1 item 3)
 CC_SHAPES = [
     ("global", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", None,
      GEMMA_CAP, GEMMA_SCALE),
@@ -2522,6 +2537,451 @@ def phase_card_vs_cpu(device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the autotuning path (repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+#: the tuning problem of benchmarks/tune_bench.py: paper-default DCQCN on
+#: the CLOS incast of 8 senders, 3000 steps, a trace sample every 50
+TUNE_STEPS = 3000
+TUNE_TRACE = 50
+TUNE_TAU = 0.2
+#: benchmarks/tune_bench.py's ES_KW and the acceptance GradTuner settings
+#: of tests/test_tune.py (iters=12, lr=0.25, temperature=0.2)
+TUNE_ES_KW = dict(iters=4, pop=8, sigma=0.3, lr=0.4)
+TUNE_GRAD_KW = dict(lr=0.25, temperature=0.2)
+TUNE_GRAD_ITERS = 12
+#: iters run here: each iteration is one 3000-step value_and_grad, 86-119
+#: s eager on the H100 (PR 19's development runs), so the 12 of the
+#: acceptance test (13 calls) do not fit the script's time limit
+TUNE_GRAD_ITERS_RUN = 1
+#: the bitwise-resume check's problem: 3 senders, flows from 0
+TUNE_RESUME_STEPS = 100
+#: steps of the temperature-0 check on the paper cell
+TUNE_TAU0_STEPS = 2000
+
+
+def _tune_problem():
+    from repro_torch.core import CCScheme, PAPER_CONFIG, ScenarioSpec
+    return PAPER_CONFIG.replace(scheme=CCScheme.DCQCN), \
+        ScenarioSpec.incast(8)
+
+
+def _soft_sweep():
+    """tests/test_tune.py's small sweep: DCQCN and DCQCN-Rev on a
+    4-sender incast with flows active 0.1 -> 1.1 ms."""
+    from repro_torch.core import (CCScheme, PAPER_CONFIG, ScenarioSpec,
+                                  Sweep)
+    return Sweep.grid(
+        configs={s.name: PAPER_CONFIG.replace(scheme=s)
+                 for s in (CCScheme.DCQCN, CCScheme.DCQCN_REV)},
+        scenarios={"in4": ScenarioSpec.incast(4, t_start=1e-4,
+                                              t_stop=1.1e-3)})
+
+
+def _rule_cases(device, g):
+    """(name, wrapper(*leaves), plain(*leaves), leaves) for each kernel
+    with an autograd rule, on random card tensors that require grad (the
+    CC kernels' parameter rows among them)."""
+    import torch
+    from repro_torch.core import cc
+    from repro_torch.core.fluid import step_params
+    from repro_torch.core.params import CCSpec
+    from repro_torch.kernels import cc_step as K
+    from repro_torch.kernels import fluid_reduce as FR
+    from repro_torch.kernels.ref import RPState
+    R, F = 8, 4096
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        (R, F), generator=g, device=device)
+    bern = lambda p: (torch.rand((R, F), generator=g, device=device)  # noqa
+                      < p).float()
+    par = step_params([CCSpec()] * R, device=device)
+    dt = torch.tensor(1e-6, dtype=torch.float32, device=device)
+    rows = cc.pack_react_rows(par.react, par.line_rate, dt)
+    t_sec = u(0, 3e-3)[:, 0].contiguous()
+    cases = []
+    xs = [u(0, 4e6), u(0, 5e7), u(0, 1e6), u(0, 1e-4), u(0, 12.5e9),
+          u(0, 2e-3), u(1e-3, 4e-3), u(0, 6e7), u(1e6, 4e6)]
+    cases.append(("gen_np_step",
+                  lambda *a: K.gen_np_step(*a, t_sec=t_sec, dt=dt),
+                  lambda *a: K.gen_np_plain(
+                      *a, K.pack_gen_np_params(t_sec, dt)), xs))
+    cnp = bern(0.3)
+    st = [u(1e6, 12.5e9), u(1e6, 12.5e9), u(0, 1), u(0, 1.2e7),
+          u(0, 6e-5), u(0, 6e-5), torch.floor(u(0, 9)),
+          torch.floor(u(0, 9))]
+    cases.append(("rp_step",
+                  lambda *a: tuple(K.rp_step(RPState(*a[:8]), cnp,
+                                             packed=a[8])),
+                  lambda *a: tuple(K.rp_plain(RPState(*a[:8]), cnp, a[8])),
+                  st + [rows["rp"].clone()]))
+    xs = [u(1e6, 12.5e9), u(0, 6e-5) * bern(0.5), u(1e6, 12.5e9),
+          u(2.5e12, 7.5e12), rows["erp"].clone()]
+    cases.append(("erp_step",
+                  lambda *a: K.erp_step(a[0], a[1], cnp, a[2], a[3],
+                                        packed=a[4]),
+                  lambda *a: K.erp_plain(a[0], a[1], cnp, a[2], a[3], a[4]),
+                  xs))
+    xs = [u(1e6, 12.5e9), u(0, 5e-5) * bern(0.5), u(0, 1e-5),
+          rows["swift"].clone()]
+    cases.append(("swift_step",
+                  lambda *a: K.swift_step(*a[:3], packed=a[3]),
+                  lambda *a: K.swift_plain(*a), xs))
+    # a segment walk over every other row of 3-channel data, segments of
+    # 0-300 rows (short groups and long segments both)
+    lens = torch.randint(0, 300, (400,), generator=g, device=device)
+    off = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    n = int(off[-1])
+    perm = torch.randperm(2 * n, generator=g, device=device)[:n]
+    sched = FR.reduce_schedule(off)
+    data = torch.randn((2 * n, 3), generator=g, device=device)
+    cases.append(("segment_reduce",
+                  lambda d: (FR.segment_reduce(d, None, 400, rows=perm,
+                                               offsets=off,
+                                               schedule=sched),),
+                  lambda d: (FR.segment_reduce_plain(d, off, perm),),
+                  [data]))
+    return cases
+
+
+def _rules_vs_plain(device) -> dict:
+    """Each autograd rule on the card: the wrapper's forward (its kernel,
+    one launch) and its gradient against the plain version's forward and
+    autograd gradient on the same inputs and cotangents, bitwise."""
+    import torch
+    from repro_torch.tune.optimizers import deterministic
+    g = torch.Generator(device=device).manual_seed(19)
+    out = {}
+    with deterministic(device):
+        for name, kern, plain, leaves in _rule_cases(device, g):
+            leaves = [x.detach().requires_grad_() for x in leaves]
+            reset_counts()
+            ko = kern(*leaves)
+            launched = counts()[name]
+            po = plain(*leaves)
+            cot = [torch.randn(o.shape, generator=g, device=device)
+                   for o in po]
+            kg = torch.autograd.grad(ko, leaves, cot, allow_unused=True)
+            pg = torch.autograd.grad(po, leaves, cot, allow_unused=True)
+            z = lambda a, x: torch.zeros_like(x) if a is None else a  # noqa
+            fwd = _max_abs_err(tuple(ko), tuple(po))
+            grad = max(float((z(a, x) - z(b, x)).abs().max())
+                       for a, b, x in zip(kg, pg, leaves))
+            same = all(torch.equal(z(a, x), z(b, x))
+                       for a, b, x in zip(kg, pg, leaves))
+            nonzero = [bool(z(a, x).abs().max() > 0)
+                       for a, x in zip(kg, leaves)]
+            out[name] = {"launches": launched, "forward_max_abs_err": fwd,
+                         "grad_bitwise_equal": same,
+                         "grad_max_abs_err": grad,
+                         "nonzero_grads": nonzero}
+            assert launched == 1 and fwd == 0.0 and same, (name, out[name])
+    return out
+
+
+def _profile_soft(ev, theta, tau: float) -> dict:
+    """Device busy time and idle share of one value_and_grad (forward and
+    backward) by torch.profiler's kernel durations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.value_and_grad(theta, tau)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, n_ops = _device_us(prof)
+    steps = ev.n_samples * ev.k
+    rec = {"profiled_steps": steps, "wall_ms_per_step": wall / steps * 1e3}
+    if not per:
+        rec["device"] = "not measured (the profiler saw no device events)"
+        return rec
+    busy = sum(per.values()) / 1e6
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    rec.update({"device_busy_ms_per_step": busy / steps * 1e3,
+                "device_idle_share": 1.0 - busy / wall,
+                "device_ops_per_step": n_ops / steps,
+                "top_kernels_us_per_step": [[k[:80], v / steps]
+                                            for k, v in top]})
+    return rec
+
+
+def _child(fn: str, *args) -> "subprocess.Popen":
+    """Start ``chip_smoke.<fn>(*args)`` in a child process; its last
+    stdout line is the JSON of what it returns (``_join``).  The soft
+    rollout is host-bound (one core, the card ~96% idle), so the tune
+    phase runs its long calls side by side in processes of their own."""
+    code = (f"import json, sys; sys.path[:0] = [{SRC!r}, {HERE!r}]; "
+            f"import chip_smoke as c; "
+            f"print(json.dumps(c.{fn}(*json.loads(sys.argv[1]))))")
+    return subprocess.Popen([sys.executable, "-c", code, json.dumps(args)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE)
+
+
+def _join(proc, what: str, timeout: float = 900.0):
+    """The JSON a ``_child`` printed last; raises if it failed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed (exit {proc.returncode}):\n"
+                           f"{err[-6000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _card():
+    import torch
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def tune_cpu_refs() -> dict:
+    """The CPU side of the tune phase's card-vs-CPU checks (a child
+    process): the soft sweep's delivered bytes and the 3000-step
+    ``value_and_grad`` at theta0."""
+    import torch
+    from repro_torch.tune import Evaluator, TuneProblem
+    torch.set_num_threads(2)
+    res = _soft_sweep().run(900, device="cpu", temperature=TUNE_TAU)
+    cfg, scn = _tune_problem()
+    ev = Evaluator(TuneProblem(cfg, scn, n_steps=TUNE_STEPS,
+                               trace_every=TUNE_TRACE, device="cpu"))
+    t0 = time.perf_counter()
+    val, grad = ev.value_and_grad(ev.box.encode(ev.spec), TUNE_TAU)
+    return {"delivered": [res[i].final.delivered.tolist()
+                          for i in range(len(res.points))],
+            "value": val, "grad": grad.tolist(),
+            "seconds": time.perf_counter() - t0}
+
+
+def tune_grad_autotune() -> dict:
+    """``autotune(method="grad")`` at the acceptance settings, iters cut
+    (a child process on the card)."""
+    from repro_torch.tune import autotune
+    device = _card()
+    cfg, scn = _tune_problem()
+    t0 = time.perf_counter()
+    gr = autotune(cfg, scn, method="grad", n_steps=TUNE_STEPS,
+                  trace_every=TUNE_TRACE, seed=0, device=device,
+                  iters=TUNE_GRAD_ITERS_RUN, **TUNE_GRAD_KW)
+    return {"kw": {**TUNE_GRAD_KW, "iters": TUNE_GRAD_ITERS_RUN},
+            "iters_cut_from": TUNE_GRAD_ITERS,
+            "cut_reason": "one 3000-step eager value_and_grad an "
+            "iteration on the card",
+            "seconds": time.perf_counter() - t0,
+            "trace_values": gr.trace.value.tolist(), **gr.to_record()}
+
+
+def phase_tune(device) -> dict:
+    """The autotuning path: the soft model's temperature-0 identity and
+    its card-vs-CPU agreement, ``value_and_grad`` through the kernels'
+    autograd rules (bitwise repeatable, against the CPU, launches, ms a
+    step forward and backward, peak memory, idle share), each rule
+    against its plain version, ``autotune`` by ES and by gradient, and a
+    killed-and-resumed GradTuner.  The CPU references and the gradient
+    ``autotune`` run in child processes beside the rest (the latter
+    started after the timed call, so that call has the card alone)."""
+    from repro_torch.core import SWEEP_EXEC_CACHE
+    t_phase = time.perf_counter()
+    rec = {"phase": "tune"}
+    children = [_child("tune_cpu_refs")]
+    try:
+        _phase_tune(device, rec, children)
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tune", "seconds": rec["seconds"]})
+    SWEEP_EXEC_CACHE.clear()
+    return rec
+
+
+def _phase_tune(device, rec: dict, children: list) -> None:
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import SWEEP_EXEC_CACHE, ScenarioSpec
+    from repro_torch.tune import Evaluator, GradTuner, TuneProblem, autotune
+    from repro_torch.tune.optimizers import deterministic
+
+    # 1. temperature 0 builds the default run's window: a cache hit,
+    #    bitwise equal, the same launches
+    sweep = _paper_sweep()
+    n = TUNE_TAU0_STEPS
+    reset_counts()
+    base = sweep.run(n, device=device)
+    l_base = counts()
+    s0 = SWEEP_EXEC_CACHE.stats()
+    reset_counts()
+    tau0 = sweep.run(n, device=device, temperature=0.0)
+    l_tau0 = counts()
+    d = SWEEP_EXEC_CACHE.stats() - s0
+    rec["tau0"] = {"steps": n, "runs": len(sweep.points),
+                   "bitwise_equal_default": _result_diff(tau0, base)[0],
+                   "launches": l_tau0, "cache": d.to_dict()}
+    emit({"phase": "tune", "check": "tau0", **rec["tau0"]})
+    assert rec["tau0"]["bitwise_equal_default"], rec["tau0"]
+    assert l_tau0 == l_base, (l_tau0, l_base)
+    _launches_once_a_step(l_tau0, n, "tune tau0")
+    assert (d.misses, d.hits) == (0, 1), d
+
+    # 2. the soft model on the card (against the CPU below), refused on
+    #    the kernel tiers
+    small = _soft_sweep()
+    t0 = time.perf_counter()
+    card = small.run(900, device=device, temperature=TUNE_TAU)
+    card_s = time.perf_counter() - t0
+    hard = small.run(900, device=device)
+    refused = {}
+    for tier in (True, "mega"):
+        try:
+            small.run(64, device=device, temperature=TUNE_TAU,
+                      use_kernels=tier)
+            refused[str(tier)] = None
+        except ValueError as e:
+            refused[str(tier)] = "hard dynamics only" in str(e)
+    assert all(refused.values()), refused
+    moved = not _result_diff(card, hard)[0]
+    assert moved, "the soft sweep equals the hard one"
+
+    # 3. value_and_grad at theta0: forward and backward timed apart (the
+    #    card to itself), launches of the forward, twice bitwise
+    cfg, scn = _tune_problem()
+    ev = Evaluator(TuneProblem(cfg, scn, n_steps=TUNE_STEPS,
+                               trace_every=TUNE_TRACE, device=device))
+    th0 = ev.box.encode(ev.spec)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    with deterministic(device):
+        th = torch.tensor(th0, dtype=torch.float32, device=device,
+                          requires_grad=True)
+        t0 = time.perf_counter()
+        val = ev.soft_objective(th, TUNE_TAU)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        l_fwd = counts()
+        (grad,) = torch.autograd.grad(val, th)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    l_bwd = {k: v - l_fwd[k] for k, v in counts().items()}
+    peak = torch.cuda.max_memory_allocated() - mem0
+    v1, g1 = float(val.detach()), grad.double().cpu().numpy()
+    del val, grad, th
+    children.append(_child("tune_grad_autotune"))
+    t3 = time.perf_counter()
+    v2, g2 = ev.value_and_grad(th0, TUNE_TAU)
+    vag_s = time.perf_counter() - t3
+    steps = ev.n_samples * ev.k
+    vag = {"steps": steps, "tau": TUNE_TAU, "theta": th0.tolist(),
+           "value": v1, "grad": g1.tolist(),
+           "bitwise_equal_twice": v1 == v2 and np.array_equal(g1, g2),
+           "forward_ms_per_step": (t1 - t0) / steps * 1e3,
+           "backward_ms_per_step": (t2 - t1) / steps * 1e3,
+           "value_and_grad_s": (t2 - t0),
+           "second_call_s_beside_a_child": vag_s, "peak_bytes": peak,
+           "launches_forward": l_fwd, "launches_backward": l_bwd}
+    short = Evaluator(TuneProblem(cfg, scn, n_steps=TUNE_TRACE,
+                                  trace_every=TUNE_TRACE, device=device))
+    vag["profile_beside_a_child"] = _profile_soft(short, th0, TUNE_TAU)
+    rec["value_and_grad"] = vag
+    assert vag["bitwise_equal_twice"], vag
+    # DCQCN alone: gen_np and rp once a step, three link sums a step on
+    # segment_reduce (the rollout evaluates the config's stages only)
+    want = {**{k: 0 for k in l_fwd}, "gen_np_step": steps,
+            "rp_step": steps, "segment_reduce": 3 * steps}
+    assert l_fwd == want, ("tune forward", l_fwd, want)
+    assert not any(l_bwd.values()), l_bwd
+
+    # 4. each autograd rule against its plain version's gradient
+    rec["rules"] = _rules_vs_plain(device)
+    emit({"phase": "tune", "check": "rules", "rules": rec["rules"]})
+
+    # 5. autotune by ES on the hard model: one capture a population shape
+    s0 = SWEEP_EXEC_CACHE.stats()
+    t0 = time.perf_counter()
+    es = autotune(cfg, scn, method="es", n_steps=TUNE_STEPS,
+                  trace_every=TUNE_TRACE, seed=0, device=device,
+                  **TUNE_ES_KW)
+    es_s = time.perf_counter() - t0
+    d = SWEEP_EXEC_CACHE.stats() - s0
+    shapes = {TUNE_ES_KW["pop"], 1, len(es.candidates)}
+    rec["es"] = {"kw": TUNE_ES_KW, "seconds_beside_a_child": es_s,
+                 "population_shapes": sorted(shapes), "cache": d.to_dict(),
+                 **es.to_record()}
+    emit({"phase": "tune", "check": "autotune_es", **rec["es"]})
+    assert es.improved, rec["es"]
+    assert d.misses == len(shapes), (d, shapes)
+
+    # 6. a GradTuner killed after 2 iterations and resumed = 4 straight
+    small_ev = Evaluator(TuneProblem(
+        cfg, ScenarioSpec.incast(3, t_start=0.0, t_stop=1.1e-3),
+        n_steps=TUNE_RESUME_STEPS, trace_every=TUNE_TRACE, device=device))
+    kw = dict(lr=0.2, temperature=0.3)
+    t0 = time.perf_counter()
+    full = GradTuner(iters=4, **kw).run(small_ev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        GradTuner(iters=2, **kw).run(small_ev, seed=0, ckpt_dir=tmp,
+                                     ckpt_every=2)
+        resumed = GradTuner(iters=4, **kw).run(small_ev, seed=0,
+                                               ckpt_dir=tmp)
+    rec["resume"] = {"steps": TUNE_RESUME_STEPS, "iters": 4,
+                     "killed_after": 2,
+                     "seconds_beside_a_child": time.perf_counter() - t0,
+                     "bitwise_equal": bool(
+                         np.array_equal(full.theta, resumed.theta)
+                         and np.array_equal(full.value, resumed.value)),
+                     "values": full.value.tolist()}
+    emit({"phase": "tune", "check": "resume", **rec["resume"]})
+    assert rec["resume"]["bitwise_equal"], rec["resume"]
+    assert not np.array_equal(full.theta[0], full.theta[-1]), full.theta
+
+    # 2 and 3 against the CPU (the child's results)
+    cpu = _join(children[0], "the tune phase's CPU references")
+    rel = max(float(np.abs(card[i].final.delivered.astype(np.float64)
+                           - np.asarray(want_d)).max()
+                    / np.abs(np.asarray(want_d)).max())
+              for i, want_d in enumerate(cpu["delivered"]))
+    rec["soft_sweep"] = {"steps": 900, "tau": TUNE_TAU, "wall_s": card_s,
+                         "delivered_rel_vs_cpu": rel,
+                         "differs_from_hard": moved, "refused": refused}
+    emit({"phase": "tune", "check": "soft_sweep", **rec["soft_sweep"]})
+    assert rel <= 2e-3, rec["soft_sweep"]
+    gcpu = np.asarray(cpu["grad"])
+    cos = float(np.dot(g1, gcpu) / max(np.linalg.norm(g1)
+                                       * np.linalg.norm(gcpu), 1e-300))
+    vag.update({"cpu_value": cpu["value"], "cpu_grad": cpu["grad"],
+                "cpu_s": cpu["seconds"],
+                "value_rel_vs_cpu": abs(v1 - cpu["value"])
+                / max(abs(cpu["value"]), 1e-30),
+                "grad_cosine_vs_cpu": cos,
+                "grad_norm_ratio_vs_cpu": float(np.linalg.norm(g1)
+                                                / np.linalg.norm(gcpu))})
+    emit({"phase": "tune", "check": "value_and_grad", **vag})
+    assert vag["value_rel_vs_cpu"] <= 2e-3 and cos >= 0.99, vag
+
+    # 7. autotune by gradient (the child on the card)
+    rec["grad"] = _join(children[1], "autotune(method='grad')")
+    emit({"phase": "tune", "check": "autotune_grad", **rec["grad"]})
+    assert np.isfinite(rec["grad"]["best_value"]) and \
+        rec["grad"]["best_value"] >= rec["grad"]["baseline_value"], \
+        rec["grad"]
+    # its first iteration is the call timed above: the same bits
+    assert rec["grad"]["trace_values"][0] == v1, (rec["grad"], v1)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2564,6 +3024,11 @@ def main() -> int:
     attn["flash_attention_cuda_core"]["launches"] = \
         f32["routes"]["kernels"]["cuda_core"]
     phase_card_vs_cpu(device)
+    tune = phase_tune(device)
+    for name in ("gen_np_step", "rp_step", "segment_reduce"):
+        row = seg if name == "segment_reduce" else kern[name]
+        row["tune_launches"] = \
+            tune["value_and_grad"]["launches_forward"][name]
     rows = list(kern.values()) + [seg, mstep, mblock,
                                   attn["flash_attention"],
                                   attn["flash_attention_cuda_core"],

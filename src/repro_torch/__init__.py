@@ -9,9 +9,13 @@ kernels of ``repro_torch.kernels.cc_step`` there.  The decoder-only
 transformers serve through ``repro_torch.serve.ServingEngine``
 (``configs``, ``models``, ``launch.serve``), with attention in the CUDA
 kernels of ``kernels.flash_attention`` / ``kernels.decode_attention``.
+``Sweep.run(temperature > 0)`` runs the soft-relaxed model, and
+``tune.autotune`` tunes CC constants on it (autograd through the CC and
+``segment_reduce`` kernels) and verifies them on the hard model;
+``core.serialize`` and ``ckpt`` read and write the reference's formats.
 
     from repro_torch.core import ScenarioSpec, Sweep, CCScheme, PAPER_CONFIG
 """
 
 __all__ = ["core", "net", "kernels", "convert", "configs", "models",
-           "serve", "launch"]
+           "serve", "launch", "tune", "ckpt"]

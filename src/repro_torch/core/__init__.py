@@ -11,6 +11,8 @@ Public surface (as the reference's, for the ported slice):
                  trace window
   * experiments: ScenarioSpec / Sweep / SweepResult / config_grid
   * scenarios / workloads: the reference's host-side builders
+  * serialize:   the reference's JSON wire format for configs, scenarios
+                 and results (``SimResult.to_dict`` / ``from_dict``)
 """
 
 from .params import (CCConfig, CCScheme, CCSpec, DCQCNParams, FNCCParams,

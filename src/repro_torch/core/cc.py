@@ -1,4 +1,4 @@
-"""Composable CC-stage registry (port of ``repro.core.cc``, hard path).
+"""Composable CC-stage registry (port of ``repro.core.cc``).
 
 Three families — **marking**, **notification**, **reaction** — are
 registries of small components; a ``CCSpec(marking=..., notification=...,
@@ -12,13 +12,21 @@ family's params are a dict of ``[R]`` tensors (one value per run).
 ``dispatch`` evaluates every registered stage and selects per run by
 the family code, so one step serves any mix of stage combinations.
 
-Only the hard dynamics are ported: the reference's ``soft.select(tau,
-soft, hard)`` sites are the hard expression here, and a positive
-temperature is refused upstream (``fluid.refuse_soft``).
+Soft relaxation (``repro_torch.tune``): every context carries ``tau``,
+the per-run temperature ``[R]`` of a soft batch, or ``None`` in a hard
+one.  ``None`` builds exactly the hard stage; with a tensor every
+softened site is ``soft.select(tau, soft_expr, hard_expr)`` with the
+hard code verbatim as ``hard_expr``, so a run at tau = 0 takes the hard
+value bitwise.  Whether a batch is soft is static (the caller decides
+once), never a branch on the temperature's value.
 
 The reaction stages ``rp``, ``erp`` and ``swift`` run through the
 per-flow wrappers of ``repro_torch.kernels.cc_step``: on a CUDA tensor
 they launch the Hopper kernels, on a CPU tensor the plain versions.
+In a soft batch the kernel's result is the stage's ``hard_expr`` and a
+torch transcription of the reference's soft update the ``soft_expr``;
+under autograd the wrappers differentiate the kernels through their
+plain versions (``kernels.cc_step``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ..kernels import cc_step
 from ..kernels.ref import ERPParams, RPParams, RPState, SwiftKParams
+from ..tune import soft
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +172,11 @@ def _tree_select(cond_fn, a, b):
 
 
 def _select(code: torch.Tensor, outs):
-    """Per-run where-chain over same-structure outputs, stage 0 as the
-    base (``code`` is [R]; each leaf has a leading run axis)."""
-    sel = outs[0]
-    for i, o in enumerate(outs[1:], start=1):
+    """Per-run where-chain over same-structure ``(stage code, output)``
+    pairs, the first as the base (``code`` is [R]; each leaf has a
+    leading run axis)."""
+    sel = outs[0][1]
+    for i, o in outs[1:]:
         hit = code == i
         sel = _tree_select(
             lambda nd, hit=hit: hit.reshape((-1,) + (1,) * (nd - 1)),
@@ -175,26 +185,31 @@ def _select(code: torch.Tensor, outs):
 
 
 def dispatch(registry: StageRegistry, code, params: dict, ctx,
-             state: dict, *, packed: dict | None = None):
+             state: dict, *, packed: dict | None = None,
+             only: frozenset | None = None):
     """Evaluate every stage of ``registry`` and select per run by code.
 
     Returns ``(outputs, family_state)``: ``family_state`` maps every
     state key a stage of this family owns to its post-step value
     (unselected stages pass theirs through).  ``packed`` maps stage
     names to prepacked kernel parameter rows (``pack_react_rows``).
+    ``only`` (a set of codes that covers every run's ``code``) evaluates
+    just those stages: the same selected values, fewer ops.
     """
     outs = []
     owned: set[str] = set()
     for stage in registry.stages():
+        if only is not None and stage.code not in only:
+            continue
         pk = None if packed is None else packed.get(stage.name)
         main, upd = stage.step(params, ctx, state, pk)
         owned.update(upd)
-        outs.append((main, upd))
+        outs.append((stage.code, main, upd))
     full = []
-    for main, upd in outs:
+    for i, main, upd in outs:
         merged = {k: state[k] for k in owned}
         merged.update(upd)
-        full.append((main, merged))
+        full.append((i, (main, merged)))
     return _select(code, full)
 
 
@@ -243,21 +258,23 @@ class MarkCtx(NamedTuple):
     holds_queue: torch.Tensor  # [R, F, H] bool
     dem_next: torch.Tensor    # [R, F, H] f32
     grant_next: torch.Tensor  # [R, F, H] f32
-    over_next: torch.Tensor   # [R, F, H] f32 (exact 0/1)
+    over_next: torch.Tensor   # [R, F, H] f32 (exact 0/1 hard)
     port_buffer: torch.Tensor  # [R] f32
     line_rate: torch.Tensor   # [R] f32
+    tau: torch.Tensor | None = None   # [R] f32 in a soft batch
 
 
 class NotifCtx(NamedTuple):
     """Phase-5 context: who marked, and the delay-line geometry."""
 
-    marked: torch.Tensor      # [R, F] f32 mark level (exact 0/1)
+    marked: torch.Tensor      # [R, F] f32 mark level (exact 0/1 hard)
     mark_fh: torch.Tensor     # [R, F, H] f32
     np_tmr_t: torch.Tensor    # [R, F] f32 suppression timer (post-tick)
     hops: torch.Tensor        # [R, F] int current path's hop count
     rtt: torch.Tensor         # [R, F] int end-to-end delay in dt steps
     t: torch.Tensor           # [R] int32 step counter
     D: int                    # static delay-line depth
+    tau: torch.Tensor | None = None   # [R] f32 in a soft batch
 
 
 class ReactCtx(NamedTuple):
@@ -272,13 +289,14 @@ class ReactCtx(NamedTuple):
     bc_stage: torch.Tensor    # [R, F] int32
     t_stage: torch.Tensor     # [R, F] int32
     hold: torch.Tensor
-    cnp: torch.Tensor         # [R, F] f32 notification level (0/1)
+    cnp: torch.Tensor         # [R, F] f32 notification level (0/1 hard)
     tgt_rx: torch.Tensor      # [R, F] f32 received severity payload
     qdelay: torch.Tensor      # [R, F] f32 queuing-delay estimate (s)
     jitter: torch.Tensor      # [R, F] f32 deterministic per-flow jitter
     gen_rate: torch.Tensor    # [R, F] f32 offered rate (pfc source)
     line_rate: torch.Tensor   # [R] f32
     dt: torch.Tensor          # [] f32
+    tau: torch.Tensor | None = None   # [R] f32 in a soft batch
 
 
 class ReactOut(NamedTuple):
@@ -319,16 +337,29 @@ def _c3(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mark_common(thresh, ctx: MarkCtx):
-    """(base 0/1 mark, queue excess over thresh in [0, 1])."""
+    """(base mark intensity, queue excess over thresh in [0, 1]).
+
+    The intensity is an exact 0/1 float in hard mode; under the soft
+    model the threshold crossing becomes a sigmoid in the occupancy (the
+    site that gives kmin / the detection threshold a gradient).  The
+    presence gates stay hard multipliers.
+    """
     base = ((ctx.B1_w > thresh) & ctx.present
             & ctx.holds_queue).to(torch.float32)
+    if ctx.tau is not None:
+        tau = _c3(ctx.tau)
+        gate_s = (soft.unit_gate(ctx.B1_w - thresh, tau,
+                                 _c3(ctx.port_buffer))
+                  * ctx.present * ctx.holds_queue)
+        base = soft.select(tau, gate_s, base)
     qexc = torch.clamp((ctx.B1_w - thresh) / _c3(ctx.port_buffer),
                        0.0, 1.0)
     return base, qexc
 
 
 def _severity(ctx: MarkCtx, drain_gain, qexc):
-    """``grant_next * (1 - drain_gain * qexc)``; inf grants stay inf."""
+    """``grant_next * (1 - drain_gain * qexc)``; inf grants stay inf
+    (never on a product, so no infinite partial reaches autograd)."""
     finite = torch.isfinite(ctx.grant_next)
     g_fin = torch.where(finite, ctx.grant_next, 0.0)
     return torch.where(finite, g_fin * (1.0 - drain_gain * qexc),
@@ -346,13 +377,22 @@ def _mark_ecp(p, ctx: MarkCtx, state, packed=None):
     congesting = ((ctx.over_next > 0)
                   & (ctx.dem_next > _c3(p["ecp_slack"]) * ctx.grant_next)
                   ).to(torch.float32)
+    if ctx.tau is not None:
+        # graded oversubscription x a sigmoid in the demand excess
+        # (grant_next's inf sentinels drive it to exactly 0, never nan)
+        tau = _c3(ctx.tau)
+        cong_s = ctx.over_next * soft.unit_gate(
+            ctx.dem_next - _c3(p["ecp_slack"]) * ctx.grant_next, tau,
+            _c3(ctx.line_rate))
+        congesting = soft.select(tau, cong_s, congesting)
     sev = _severity(ctx, _c3(p["drain_gain"]), qexc)
     return (base * congesting, sev), {}
 
 
 def _mark_slope(p, ctx: MarkCtx, state, packed=None):
     """RED-style kmin..kmax ramp, realised by per-flow error diffusion
-    (an accumulator fires a mark when it crosses 1 and spends it)."""
+    (an accumulator fires a mark when it crosses 1 and spends it; the
+    soft model fires fractionally and spends what it fired)."""
     kmin, kmax = _c3(p["slope_kmin"]), _c3(p["slope_kmax"])
     base, qexc = _mark_common(kmin, ctx)
     ramp = torch.clamp((ctx.B1_w - kmin) / torch.clamp_min(kmax - kmin, 1.0),
@@ -363,7 +403,15 @@ def _mark_slope(p, ctx: MarkCtx, state, packed=None):
     prob = torch.amax(prob_fh, dim=2)                  # [R, F]
     acc = state["slope_acc"] + prob
     fire = acc >= 1.0
-    acc = torch.where(fire, acc - 1.0, acc)
+    if ctx.tau is None:
+        acc = torch.where(fire, acc - 1.0, acc)
+    else:
+        tau = _c2(ctx.tau)
+        fire_s = soft.select(tau, soft.unit_gate(acc - 1.0, tau, 1.0),
+                             fire.to(torch.float32))
+        acc = soft.select(tau, acc - fire_s,
+                          torch.where(fire, acc - 1.0, acc))
+        fire = fire_s
     sev = _severity(ctx, _c3(p["drain_gain"]), qexc)
     return ((base * fire.to(torch.float32)[:, :, None], sev),
             {"slope_acc": acc})
@@ -375,10 +423,17 @@ def _mark_slope(p, ctx: MarkCtx, state, packed=None):
 
 
 def _notify_window(window, ctx: NotifCtx):
-    """Suppression window shared by NP/ENP/FNCC: (0/1 emission, timer
-    reset to 0 on emission)."""
+    """Suppression window shared by NP/ENP/FNCC: (emission intensity,
+    timer reset to 0 on emission).  Exact 0/1 hard; soft = mark level x
+    a sigmoid timer gate, resetting the timer in proportion."""
     emit = ((ctx.marked > 0) & (ctx.np_tmr_t >= window)).to(torch.float32)
     np_tmr = torch.where(emit > 0, 0.0, ctx.np_tmr_t)
+    if ctx.tau is not None:
+        tau = _c2(ctx.tau)
+        emit_s = ctx.marked * soft.unit_gate(ctx.np_tmr_t - window, tau,
+                                             window)
+        emit = soft.select(tau, emit_s, emit)
+        np_tmr = soft.select(tau, (1.0 - emit_s) * ctx.np_tmr_t, np_tmr)
     return emit, np_tmr
 
 
@@ -420,6 +475,61 @@ def _react_pfc(p, ctx: ReactCtx, state, packed=None):
     return out, {}
 
 
+def _select_out(tau, soft_out: ReactOut, hard_out: ReactOut) -> ReactOut:
+    """Field by field ``soft.select`` of two reaction outputs."""
+    return ReactOut(*[soft.select(tau, a, b)
+                      for a, b in zip(soft_out, hard_out)])
+
+
+def _react_rp_soft(p, ctx: ReactCtx) -> ReactOut:
+    """The reference's soft DCQCN RP (``repro.core.cc._react_rp``): every
+    CNP-gated update blends by the fractional notification level; the
+    integer stage machine and its byte/timer events stay hard."""
+    g = _c2(p["rp_g"])
+    rdf, timer = _c2(p["rp_rdf"]), _c2(p["rp_timer"])
+    fr = _c2(p["rp_fr_stages"])
+    line, min_rate = _c2(ctx.line_rate), _c2(p["rp_min_rate"])
+    dt, tau = ctx.dt, _c2(ctx.tau)
+    c = ctx.cnp
+    cnp = ctx.cnp > 0
+    pk = lambda a, b: soft.pick(tau, c, cnp, a, b)   # noqa: E731
+    alpha_tmr = ctx.alpha_tmr + dt
+    a_tick = alpha_tmr >= timer
+    alpha = torch.where(a_tick, (1 - g) * ctx.alpha, ctx.alpha)
+    alpha_tmr = torch.where(a_tick, 0.0, alpha_tmr)
+    rp_target = pk(ctx.rate, ctx.rp_target)
+    rate = pk(ctx.rate * (1 - alpha * rdf), ctx.rate)
+    alpha = pk((1 - g) * alpha + g, alpha)
+    byte_cnt = pk(torch.zeros_like(c), ctx.byte_cnt + ctx.rate * dt)
+    tmr = pk(torch.zeros_like(c), ctx.tmr + dt)
+    alpha_tmr = pk(torch.zeros_like(c), alpha_tmr)
+    bc_stage = torch.where(cnp, 0, ctx.bc_stage)
+    t_stage = torch.where(cnp, 0, ctx.t_stage)
+    b_ev = byte_cnt >= _c2(p["rp_byte"])
+    t_ev = tmr >= timer
+    byte_cnt = torch.where(b_ev, 0.0, byte_cnt)
+    tmr = torch.where(t_ev, 0.0, tmr)
+    bc_stage = bc_stage + b_ev.to(torch.int32)
+    t_stage = t_stage + t_ev.to(torch.int32)
+    ev = b_ev | t_ev
+    imax = torch.maximum(bc_stage, t_stage)
+    imin = torch.minimum(bc_stage, t_stage)
+    in_fr = imax <= fr
+    in_hyper = imin > fr
+    rp_target = torch.where(ev & ~in_fr & ~in_hyper,
+                            rp_target + _c2(p["rp_rai"]), rp_target)
+    rp_target = torch.where(
+        ev & in_hyper,
+        rp_target + _c2(p["rp_rhai"]) * (imin - fr).to(torch.float32),
+        rp_target)
+    rate = torch.where(ev, 0.5 * (rate + rp_target), rate)
+    rate = soft.clip(rate, min_rate, line, tau, line)
+    rp_target = soft.clip(rp_target, min_rate, line, tau, line)
+    return _passthrough(ctx)._replace(
+        rate=rate, rp_target=rp_target, alpha=alpha, byte_cnt=byte_cnt,
+        tmr=tmr, alpha_tmr=alpha_tmr, bc_stage=bc_stage, t_stage=t_stage)
+
+
 def _react_rp(p, ctx: ReactCtx, state, packed=None):
     """DCQCN RP through the ``rp_step`` kernel (stages travel as
     float32 there and come back int32)."""
@@ -436,6 +546,8 @@ def _react_rp(p, ctx: ReactCtx, state, packed=None):
         byte_cnt=out.byte_cnt, tmr=out.tmr, alpha_tmr=out.alpha_tmr,
         bc_stage=out.bc_stage.to(torch.int32),
         t_stage=out.t_stage.to(torch.int32))
+    if ctx.tau is not None:
+        res = _select_out(_c2(ctx.tau), _react_rp_soft(p, ctx), res)
     return res, {}
 
 
@@ -444,15 +556,65 @@ def _erp_slope(p, ctx: ReactCtx) -> torch.Tensor:
     return _c2(p["erp_rai"]) * (1.0 + _c2(p["erp_jitter"]) * ctx.jitter)
 
 
+def _react_erp_soft(p, ctx: ReactCtx, slope):
+    """The reference's soft ERP (``repro.core.cc._react_erp``): settle
+    and hold blend by the notification level, the hold-down expiry is a
+    sigmoid recovery gate."""
+    dt, tau = ctx.dt, _c2(ctx.tau)
+    settle_f, hold_T = _c2(p["erp_settle"]), _c2(p["erp_hold"])
+    min_rate, line = _c2(p["erp_min_rate"]), _c2(ctx.line_rate)
+    c = ctx.cnp
+    cnp = ctx.cnp > 0
+    pk = lambda a, b: soft.pick(tau, c, cnp, a, b)   # noqa: E731
+    settle = torch.maximum(settle_f * ctx.tgt_rx, min_rate)
+    rate = pk(settle, ctx.rate)
+    hold = pk(hold_T.expand_as(c), torch.clamp_min(ctx.hold - dt, 0.0))
+    step = slope * dt
+    rec_s = (1.0 - c) * soft.unit_gate(-hold, tau, hold_T + 1e-9)
+    rate = soft.select(tau, rate + rec_s * step,
+                       torch.where(~cnp & (hold <= 0), rate + step, rate))
+    rate = soft.clip(rate, min_rate, line, tau, line)
+    return rate, hold
+
+
 def _react_erp(p, ctx: ReactCtx, state, packed=None):
     """ERP: settle to the signalled fair share, hold, additive recovery
     (through the ``erp_step`` kernel)."""
     if packed is None:
         packed = cc_step.pack_erp_params(_erp_params(p, ctx.line_rate,
                                                      ctx.dt))
+    slope = _erp_slope(p, ctx)
     rate, hold = cc_step.erp_step(ctx.rate, ctx.hold, ctx.cnp, ctx.tgt_rx,
-                                  _erp_slope(p, ctx), packed=packed)
+                                  slope, packed=packed)
+    if ctx.tau is not None:
+        tau = _c2(ctx.tau)
+        rate_s, hold_s = _react_erp_soft(p, ctx, slope)
+        rate = soft.select(tau, rate_s, rate)
+        hold = soft.select(tau, hold_s, hold)
     return _passthrough(ctx)._replace(rate=rate, hold=hold), {}
+
+
+def _react_swift_soft(p, ctx: ReactCtx, cool0):
+    """The reference's soft swift (``repro.core.cc._react_swift``): the
+    over-target and cool-down gates become sigmoids, blending the
+    multiplicative decrease against the additive recovery."""
+    tau = _c2(ctx.tau)
+    target, beta = _c2(p["swift_target"]), _c2(p["swift_beta"])
+    ai, guard = _c2(p["swift_ai"]), _c2(p["swift_guard"])
+    min_rate, line = _c2(p["swift_min_rate"]), _c2(ctx.line_rate)
+    cool = torch.clamp_min(cool0 - ctx.dt, 0.0)
+    g_over = soft.unit_gate(ctx.qdelay - target, tau, target + 1e-12)
+    g_can = soft.unit_gate(-cool, tau, guard + 1e-12)
+    factor = 1.0 - beta * (ctx.qdelay - target) \
+        / torch.clamp_min(ctx.qdelay, 1e-12)
+    dec = torch.maximum(ctx.rate * torch.maximum(factor, 1.0 - beta),
+                        min_rate)
+    cut = g_over * g_can
+    rate_s = cut * dec + (1.0 - cut) * \
+        (ctx.rate + (1.0 - g_over) * ai * ctx.dt)
+    rate_s = soft.clip(rate_s, min_rate, line, tau, line)
+    cool_s = cut * guard + (1.0 - cut) * cool
+    return rate_s, cool_s
 
 
 def _react_swift(p, ctx: ReactCtx, state, packed=None):
@@ -463,6 +625,11 @@ def _react_swift(p, ctx: ReactCtx, state, packed=None):
                                                          ctx.dt))
     rate, cool = cc_step.swift_step(ctx.rate, state["swift_cool"],
                                     ctx.qdelay, packed=packed)
+    if ctx.tau is not None:
+        tau = _c2(ctx.tau)
+        rate_s, cool_s = _react_swift_soft(p, ctx, state["swift_cool"])
+        rate = soft.select(tau, rate_s, rate)
+        cool = soft.select(tau, cool_s, cool)
     return _passthrough(ctx)._replace(rate=rate), {"swift_cool": cool}
 
 

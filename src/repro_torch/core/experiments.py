@@ -42,7 +42,7 @@ from . import cc
 from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
                     _step_body, check_routing_paths, clamp_dense_rows,
-                    delay_depth, dense_reduce_rows, init_state,
+                    delay_depth, dense_reduce_rows, init_state, is_soft,
                     kernel_tier, reduce_plan, refuse_unported,
                     resolve_device, scenario_arrays, step_params, _upload)
 from .params import CCConfig, CCSpec
@@ -527,7 +527,9 @@ class WindowStatic(NamedTuple):
     static scan tuple without the scan depth (a window runner is replayed
     ``n_samples`` times, so the depth does not change the program) and
     without the megakernel's substep block (``trace_every`` on the mega
-    tier)."""
+    tier).  ``soft`` says whether the window runs the soft model (any
+    run's temperature > 0): the step's ops differ, so it is part of the
+    cache key, and a hard batch's window never reads the temperature."""
 
     trace_every: int
     dt: float
@@ -536,6 +538,7 @@ class WindowStatic(NamedTuple):
     dense_rows: int
     tier: str                 # kernel_tier(use_kernels)
     n_vcs: int
+    soft: bool = False
 
 
 class WindowInputs(NamedTuple):
@@ -561,10 +564,12 @@ def window_fn(inp: WindowInputs, static: WindowStatic):
                             n_vcs=s.n_vcs, trace_every=s.trace_every,
                             dt=s.dt, reduce=s.reduce)
 
+    tau = inp.par.temperature if s.soft else None
+
     def step(st):
         return _step_body(st, inp.sd, inp.par, inp.plan,
                           n_switches=s.n_switches, reduce=s.reduce,
-                          n_vcs=s.n_vcs, packed_react=inp.packed)
+                          n_vcs=s.n_vcs, packed_react=inp.packed, tau=tau)
 
     return flow_window(step, s.trace_every, s.dt, s.n_vcs,
                        inp.state.nicq.device)
@@ -823,7 +828,8 @@ class Sweep:
                                    plan=plan, window=float(k * dt))
         static = WindowStatic(
             trace_every=k, dt=dt, n_switches=n_sw, reduce=reduce,
-            dense_rows=int(dense_rows), tier=tier, n_vcs=self.n_vcs)
+            dense_rows=int(dense_rows), tier=tier, n_vcs=self.n_vcs,
+            soft=is_soft(temperature))
         return static, WindowInputs(state=st_b, sd=sd_b, par=par_b,
                                     plan=plan, packed=packed,
                                     mplan=mplan), n_samples
@@ -851,11 +857,12 @@ class Sweep:
             device=device)
         sd_b, par_b, plan = inp.sd, inp.par, inp.plan
         n_sw, n_vcs = static.n_switches, static.n_vcs
+        tau = par_b.temperature if static.soft else None
 
         def step(st):
             return _step_body(st, sd_b, par_b, plan, n_switches=n_sw,
                               reduce=static.reduce, n_vcs=n_vcs,
-                              packed_react=inp.packed)
+                              packed_react=inp.packed, tau=tau)
 
         block = None
         if static.tier == "mega":
@@ -899,8 +906,15 @@ class Sweep:
         the card and their plain versions on the CPU.
         ``use_kernels="mega"`` makes each trace window of the whole
         batch one ``megastep_block`` launch (not with ``"pallas"``).
-        Not ported yet (NotImplementedError): ``mesh=``,
-        ``temperature > 0``.
+        Not ported yet (NotImplementedError): ``mesh=``.
+
+        ``temperature`` > 0 runs the soft-relaxed dynamics of
+        ``repro_torch.tune`` (every run of the batch at that temperature,
+        held per run in ``StepParams.temperature``; only with
+        ``use_kernels=False``, since the kernel tiers compute the hard
+        step alone and raise ValueError).  ``temperature=0.0`` is the
+        hard model and builds the very window of the default run (the
+        same cache entry, the same bits).
 
         ``pad_runs_to`` / ``min_delay_slots`` / ``dense_rows`` /
         ``min_switches`` pin the batch geometry as in the reference;
@@ -1015,6 +1029,18 @@ class SweepResult:
     def items(self):
         for i, p in enumerate(self.points):
             yield p.name, self[i]
+
+    def to_dict(self, *, traces: bool = True) -> dict:
+        """JSON-ready dict in the reference's wire format; the full form
+        round-trips bit-exactly via :meth:`from_dict` (see
+        ``core.serialize``)."""
+        from .serialize import sweepresult_to_dict
+        return sweepresult_to_dict(self, traces=traces)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SweepResult":
+        from .serialize import sweepresult_from_dict
+        return sweepresult_from_dict(d)
 
     def summary(self) -> dict[str, dict]:
         """Headline numbers per point (the Fig. 2/3 table in one dict)."""

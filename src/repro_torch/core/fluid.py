@@ -35,7 +35,15 @@ incidence order.  The port keeps that order everywhere:
 ``kernels.fluid_step`` megakernel on CUDA (its plain version, on the
 CPU, is ``_step_body`` itself), summing in the same orders.
 
-Only the hard dynamics are ported (``temperature > 0`` raises).
+Soft relaxation (``repro_torch.tune``): ``_step_body(..., tau=...)``
+with the batch's per-run ``StepParams.temperature`` runs the reference's
+temperature-smoothed step, every softened site written
+``soft.select(tau, soft_expr, hard_expr)`` with the hard code verbatim;
+``tau=None`` (a hard batch) builds exactly the hard step.  Whether a
+batch is soft is a static choice of the caller (``is_soft``), so a
+captured window never bakes in a branch on the temperature's value.
+The kernel tiers (``use_kernels`` True / "mega") compute the hard step
+only and refuse a positive temperature.
 
 Layering:
   * ``Scenario``     — host-side numpy tensors describing one workload
@@ -59,6 +67,7 @@ from ..kernels import fluid_step as mega
 from ..kernels.cc_step import gen_np_step
 from ..kernels.fluid_reduce import (ReduceSchedule, reduce_schedule,
                                     segment_reduce)
+from ..tune import soft
 from . import cc
 from .params import CCConfig, CCSpec, ROUTING_MODES
 from .routing import PAD, link_incidence
@@ -123,7 +132,8 @@ class StepParams(NamedTuple):
     mark: dict                # marking-family param union ([R] each)
     notif: dict
     react: dict
-    temperature: torch.Tensor  # [R] f32 — must be 0 (hard dynamics)
+    temperature: torch.Tensor  # [R] f32 — soft-relaxation temperature
+    #                            (read only by a soft batch's step)
 
 
 class FluidState(NamedTuple):
@@ -327,6 +337,14 @@ def kernel_tier(use_kernels) -> str:
         f"(or the tier names 'off'/'flow'), got {use_kernels!r}")
 
 
+def is_soft(temperature) -> bool:
+    """Whether a batch runs the soft model: any run's temperature > 0
+    (a python number, or a tensor, read back once on the host)."""
+    if isinstance(temperature, torch.Tensor):
+        return bool(temperature.numel()) and float(temperature.max()) > 0.0
+    return float(temperature) > 0.0
+
+
 def refuse_unported(*, reduce: str = "fused", use_kernels=False,
                     temperature=0.0) -> None:
     """Raise for option values and combinations the port refuses."""
@@ -338,14 +356,12 @@ def refuse_unported(*, reduce: str = "fused", use_kernels=False,
             "use_kernels='mega' runs the link sums inside its launch; "
             "reduce must be 'fused' or 'scat' (the segment_reduce kernel "
             "does not nest in the megakernel)")
-    t = temperature
-    if isinstance(t, torch.Tensor):
-        t = float(t.max()) if t.numel() else 0.0
-    if float(t) > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 (the soft relaxation of repro.tune) is not "
-            "ported yet: the port runs the hard dynamics only, like the "
-            "reference's kernel tiers")
+    if kernel_tier(use_kernels) != "off" and is_soft(temperature):
+        raise ValueError(
+            "temperature > 0 needs use_kernels=False: the kernel tiers "
+            "implement the hard dynamics only (use_kernels=False runs the "
+            "soft sites beside the per-flow kernels, which compute the "
+            "hard branch)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -649,10 +665,13 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
     path; ``"mega"`` runs the whole step as one ``megastep`` launch on
     the card (see ``kernel_tier``).  ``plan`` and ``packed_react`` are
     built here when not given; callers stepping many times build them
-    once (``make_step_fn``, ``Sweep.run``).
+    once (``make_step_fn``, ``Sweep.run``).  When any run's
+    ``par.temperature`` is > 0 the step is the soft one (read on the
+    host, once a call).
     """
     refuse_unported(reduce=reduce, use_kernels=use_kernels,
                     temperature=par.temperature)
+    tau = par.temperature if is_soft(par.temperature) else None
     if plan is None:
         plan = reduce_plan(sd, n_switches=n_switches, n_vcs=n_vcs,
                            dense_rows=dense_rows if reduce == "fused"
@@ -663,7 +682,7 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
     def body(s):
         return _step_body(s, sd, par, plan, n_switches=n_switches,
                           reduce=reduce, n_vcs=n_vcs,
-                          packed_react=packed_react)
+                          packed_react=packed_react, tau=tau)
 
     if kernel_tier(use_kernels) == "mega":
         return mega.megastep(st, sd, par, plan,
@@ -675,7 +694,14 @@ def fluid_step(st: FluidState, sd: ScenarioDev, par: StepParams,
 
 def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
                plan: ReducePlan, *, n_switches: int, reduce: str,
-               n_vcs: int, packed_react: dict):
+               n_vcs: int, packed_react: dict, tau=None,
+               stages: tuple | None = None):
+    """One step of every run.  ``tau`` ([R] temperatures) makes it the
+    soft step; ``None`` builds the hard step alone.  ``stages`` (the
+    marking, notification and reaction codes the batch's runs use, as
+    three frozensets) evaluates only those stages (``cc.dispatch``'s
+    ``only``); ``None`` evaluates every registered one."""
+    only = (None, None, None) if stages is None else stages
     fused = reduce != "scat"
     R, F, K, H = sd.alt_routes.shape
     L = sd.cap_ext.shape[1] - 1
@@ -867,12 +893,25 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
         xoff_q, xon_q = col(par.xoff / V), col(par.xon / V)
     paused = torch.where(B > xoff_q, 1.0,
                          torch.where(B < xon_q, 0.0, st.paused))
+    if tau is not None:
+        # the pause level relaxes toward 1 (0) through a sigmoid band
+        # O(tau * port_buffer) wide around each threshold
+        pb = col(par.port_buffer)
+        g_on = soft.unit_gate(B - xoff_q, col(tau), pb)
+        g_off = soft.unit_gate(xon_q - B, col(tau), pb)
+        paused = soft.select(
+            col(tau), st.paused + (1.0 - st.paused) * g_on
+            - st.paused * g_off, paused)
     sink_l = sd.sink_ext[:, :L]
     B_wire = B if V == 1 else _seq_sum(B.reshape(R, L, V), 2)
     pool_in = torch.where(sink_l >= 0, B_wire, 0.0).reshape(-1)
     pool = _ordered_walk(torch.cat([pool_in, pool_in.new_zeros(1)]),
                          plan.pool_src)                # [R, n_switches]
     pool_hot = (pool > col(par.pool_xoff)).to(f32)
+    if tau is not None:
+        pool_hot = soft.select(
+            col(tau), soft.unit_gate(pool - col(par.pool_xoff), col(tau),
+                                     col(par.port_buffer)), pool_hot)
     pool_pause = torch.where(sink_l >= 0,
                              _take(pool_hot, torch.clamp_min(sink_l, 0)),
                              0.0)
@@ -900,7 +939,14 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
         share0 + _take(surplus_w, widx)
         / torch.clamp_min(_take(n_heavy_w, widx), 1.0))
     grant = torch.where(act, grant, caps_w)
-    oversub = (_take(sum_dem_w, widx) > caps_w).to(f32)
+    sdw = _take(sum_dem_w, widx)
+    oversub = (sdw > caps_w).to(f32)
+    if tau is not None:
+        # the PAD slot's cap is inf, so the soft gate is exactly 0 there
+        tau3 = tau[:, None, None]
+        oversub = soft.select(
+            tau3, soft.unit_gate(sdw - caps_w, tau3,
+                                 par.line_rate[:, None, None]), oversub)
     inf_col = torch.full((R, F, 1), torch.inf, dtype=f32, device=dev)
     grant_next = torch.cat([grant[:, :, 1:], inf_col], dim=2)
     grant_next = torch.where(holds_queue, grant_next, torch.inf)
@@ -913,20 +959,29 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
         cc.MarkCtx(B1_w=B1_w, present=present, holds_queue=holds_queue,
                    dem_next=dem_next, grant_next=grant_next,
                    over_next=over_next, port_buffer=par.port_buffer,
-                   line_rate=par.line_rate),
-        st.cc)
+                   line_rate=par.line_rate, tau=tau),
+        st.cc, only=only[0])
     mark_pos = mark_fh > 0.0
     marked = mark_pos.any(dim=2)
     tgt = torch.amin(torch.where(mark_pos, sev, torch.inf), dim=2)
     tgt = torch.where(torch.isfinite(tgt), tgt, col(par.line_rate))
+    if tau is not None:
+        # intensity-weighted mean severity; inf sentinels take the
+        # line-rate fallback inside the mask, never a product
+        line3 = par.line_rate[:, None, None]
+        sev_fin = torch.where(torch.isfinite(sev), sev, line3)
+        m_sev = _seq_sum(torch.where(mark_pos, mark_fh * sev_fin, 0.0), 2)
+        m_sum = _seq_sum(mark_fh, 2)
+        tgt = soft.select(col(tau), (m_sev + 1e-6 * col(par.line_rate))
+                          / (m_sum + 1e-6), tgt)
     mark_lvl = torch.clamp_max(torch.amax(mark_fh, dim=2), 1.0)
 
     # ---- 5. notification (cc.NOTIFICATION dispatch) -----------------------
     (emit, np_tmr, wslot), cc_notif = cc.dispatch(
         cc.NOTIFICATION, par.notif_code, par.notif,
         cc.NotifCtx(marked=mark_lvl, mark_fh=mark_fh, np_tmr_t=np_tmr_t,
-                    hops=hops, rtt=sd.rtt, t=st.t, D=D),
-        st.cc)
+                    hops=hops, rtt=sd.rtt, t=st.t, D=D, tau=tau),
+        st.cc, only=only[1])
     rslot = (st.t % D).long()                          # [R]
     # one-hot ring ops: each (wslot[f], f) cell gets its single add/set,
     # every other cell an exact +0.0 / keep; the read row rslot is
@@ -936,8 +991,17 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
     trig_buf = st.trig_buf + torch.where(w_hot, emit[:, None, :], 0.0)
     tgt_buf = torch.where(w_hot & (emit[:, None, :] > 0), tgt[:, None, :],
                           st.tgt_buf)
+    if tau is not None:
+        e3 = emit[:, None, :]
+        tgt_buf = soft.select(
+            tau[:, None, None],
+            torch.where(w_hot, e3 * tgt[:, None, :] + (1.0 - e3) * st.tgt_buf,
+                        st.tgt_buf), tgt_buf)
     runs = torch.arange(R, device=dev)
-    cnp = (trig_buf[runs, rslot] > 0).to(f32)
+    trig_rx = trig_buf[runs, rslot]
+    cnp = (trig_rx > 0).to(f32)
+    if tau is not None:
+        cnp = soft.select(col(tau), torch.clamp_max(trig_rx, 1.0), cnp)
     tgt_rx = tgt_buf[runs, rslot]
     trig_buf = torch.where(d_iota == rslot[:, None, None], 0.0, trig_buf)
 
@@ -951,8 +1015,9 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
                     alpha_tmr=st.alpha_tmr, bc_stage=st.bc_stage,
                     t_stage=st.t_stage, hold=st.hold, cnp=cnp,
                     tgt_rx=tgt_rx, qdelay=qdelay, jitter=sd.jitter,
-                    gen_rate=sd.gen_rate, line_rate=par.line_rate, dt=dt),
-        st.cc, packed=packed_react)
+                    gen_rate=sd.gen_rate, line_rate=par.line_rate, dt=dt,
+                    tau=tau),
+        st.cc, packed=packed_react, only=only[2])
 
     new = FluidState(
         qh=qh, nicq=nicq, delivered=delivered, offered=offered,
@@ -983,7 +1048,9 @@ def make_step_fn(scn: Scenario, cfg: "CCConfig | CCSpec",
     """Returns ``step(state) -> (state, StepTrace)`` for one scenario
     run as a batch of R = 1 (``init_state(scn, cfg, device=...)``
     builds the matching state).  ``device=None`` is the card;
-    ``use_kernels="mega"`` makes each step one ``megastep`` launch."""
+    ``use_kernels="mega"`` makes each step one ``megastep`` launch;
+    ``temperature > 0`` runs the soft model (``use_kernels=False`` only).
+    """
     if delay_slots is not None:
         _check_delay(scn, delay_slots)
     check_routing_paths(cfg, scn)
@@ -1002,10 +1069,11 @@ def make_step_fn(scn: Scenario, cfg: "CCConfig | CCSpec",
                        dense_rows=dense_rows if reduce == "fused" else 0,
                        dt=dt)
     packed = cc.pack_react_rows(par.react, par.line_rate, plan.dt)
+    tau = par.temperature if is_soft(temperature) else None
 
     def step(st: FluidState):
         return _step_body(st, sd, par, plan, n_switches=n_sw, reduce=reduce,
-                          n_vcs=n_vcs, packed_react=packed)
+                          n_vcs=n_vcs, packed_react=packed, tau=tau)
 
     if kernel_tier(use_kernels) != "mega":
         return step

@@ -251,6 +251,20 @@ class SimResult:
     pause_time: np.ndarray = None  # [T] pause wire-seconds in window
     vc_stall: np.ndarray = None    # [T, V] per-VC pause wire-seconds
 
+    def to_dict(self, *, traces: bool = True, decimate: int = 1) -> dict:
+        """JSON-ready dict (numpy-free scalars, tagged arrays) in the
+        reference's wire format.  ``traces=False`` drops the trace
+        arrays; ``decimate=k`` thins them by a further factor k.  The
+        full form round-trips through ``json.dumps``/``loads`` +
+        :meth:`from_dict` bit-exactly (see ``core.serialize``)."""
+        from .serialize import simresult_to_dict
+        return simresult_to_dict(self, traces=traces, decimate=decimate)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SimResult":
+        from .serialize import simresult_from_dict
+        return simresult_from_dict(d)
+
     # -- derived metrics ----------------------------------------------------
     def window_samples(self, seconds: float) -> int:
         """Trace samples spanning ``seconds`` (smoothing windows should

@@ -20,6 +20,15 @@ the plain version beside it; given CUDA tensors it launches its kernel
 one to ``LAUNCHES[<wrapper>]``; the plain versions count nothing.  The
 kernels round every operation as the plain versions do, so on the card
 the two are bitwise equal (``chip_smoke.py`` holds them to that).
+
+Autograd (the soft rollout of ``repro_torch.tune``): when a gradient is
+asked for — grad mode on and an input that requires one — a wrapper
+goes through ``PlainVJP``: the forward is still the kernel (the plain
+version on the CPU), and the backward is the vector-Jacobian product of
+the plain version, recomputed from the saved inputs.  The kernels
+compute the same function as their plain versions, bit for bit, so
+this is their exact gradient; it is elementwise, with per-run sums over
+flows for the parameter rows, and runs no atomics.
 """
 
 from __future__ import annotations
@@ -162,6 +171,41 @@ def _route(name: str, x: torch.Tensor) -> str:
                      f"{x.device}")
 
 
+class PlainVJP(torch.autograd.Function):
+    """``forward(fwd, plain, *xs)`` returns ``fwd(*xs)`` (a tuple of
+    tensors); the backward is the vector-Jacobian product of
+    ``plain(*xs)``, which must compute the same function, recomputed
+    from the saved inputs under autograd."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, *xs):
+        ctx.plain = plain
+        ctx.save_for_backward(*xs)
+        return tuple(fwd(*xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xs = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(n) for x, n in zip(xs, need)]
+            outs = ctx.plain(*ins)
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            wrt = [x for x, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True) if pairs else [None] * len(wrt))
+        res = []
+        for x, n in zip(xs, need):
+            g = next(got) if n else None
+            res.append(torch.zeros_like(x) if n and g is None else g)
+        return (None, None, *res)
+
+
+def _wants_grad(xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def _cols(rows: torch.Tensor, like: torch.Tensor):
     """Per-run parameter columns broadcasting against ``like``."""
     cols = rows.unbind(1)
@@ -199,8 +243,14 @@ def gen_np_step(nicq, offered, dropped, np_tmr, gen_rate, t_start, t_stop,
     rows = pack_gen_np_params(t_sec, dt).to(nicq.device)
     if _route("gen_np_step", nicq) == "cpu":
         _check("gen_np_step", xs, rows, 2)
-        return gen_np_plain(*xs, rows)
-    return tuple(_launch("gen_np_step", "cc_gen_np_step", xs, rows, 4))
+        fwd = gen_np_plain
+    else:
+        def fwd(*a):
+            return _launch("gen_np_step", "cc_gen_np_step", list(a[:-1]),
+                           a[-1], 4)
+    if _wants_grad(xs + [rows]):
+        return PlainVJP.apply(fwd, gen_np_plain, *xs, rows)
+    return tuple(fwd(*xs, rows))
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +309,18 @@ def rp_step(st: RPState, cnp: torch.Tensor, p: RPParams | None = None, *,
     xs = list(st) + [cnp]
     if _route("rp_step", st.rate) == "cpu":
         _check("rp_step", xs, rows, 10)
-        return rp_plain(st, cnp, rows)
-    return RPState(*_launch("rp_step", "cc_rp_step", xs, rows, 8))
+        fwd = _rp_flat
+    else:
+        def fwd(*a):
+            return _launch("rp_step", "cc_rp_step", list(a[:-1]), a[-1], 8)
+    if _wants_grad(xs + [rows]):
+        return RPState(*PlainVJP.apply(fwd, _rp_flat, *xs, rows))
+    return RPState(*fwd(*xs, rows))
+
+
+def _rp_flat(*a):
+    """``rp_plain`` over flat inputs (8 state tensors, cnp, rows)."""
+    return tuple(rp_plain(RPState(*a[:8]), a[8], a[9]))
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +346,13 @@ def erp_step(rate, hold, cnp, tgt_rx, slope, p: ERPParams | None = None,
     xs = [rate, hold, cnp.to(torch.float32), tgt_rx, slope]
     if _route("erp_step", rate) == "cpu":
         _check("erp_step", xs, rows, 5)
-        return erp_plain(*xs, rows)
-    return tuple(_launch("erp_step", "cc_erp_step", xs, rows, 2))
+        fwd = erp_plain
+    else:
+        def fwd(*a):
+            return _launch("erp_step", "cc_erp_step", list(a[:-1]), a[-1], 2)
+    if _wants_grad(xs + [rows]):
+        return PlainVJP.apply(fwd, erp_plain, *xs, rows)
+    return tuple(fwd(*xs, rows))
 
 
 # ---------------------------------------------------------------------------
@@ -318,5 +383,11 @@ def swift_step(rate, cool, qdelay, p: SwiftKParams | None = None, *,
     xs = [rate, cool, qdelay]
     if _route("swift_step", rate) == "cpu":
         _check("swift_step", xs, rows, 7)
-        return swift_plain(*xs, rows)
-    return tuple(_launch("swift_step", "cc_swift_step", xs, rows, 2))
+        fwd = swift_plain
+    else:
+        def fwd(*a):
+            return _launch("swift_step", "cc_swift_step", list(a[:-1]),
+                           a[-1], 2)
+    if _wants_grad(xs + [rows]):
+        return PlainVJP.apply(fwd, swift_plain, *xs, rows)
+    return tuple(fwd(*xs, rows))

@@ -21,6 +21,14 @@ rest are packed into groups of consecutive segments that one CTA stages
 in shared memory.  The schedule depends on the offsets alone, so the
 fluid step builds it once per batch (``ReducePlan.seg_sched``) and every
 walk over that CSR shares it; a call without one builds it on the host.
+
+Autograd (the soft rollout of ``repro_torch.tune``): with a gradient
+asked of ``data``, the call goes through ``SegmentSumVJP``, whose
+forward is the same launch (the plain version on the CPU) and whose
+backward is a gather: each walked row gets the gradient of its segment.
+The fluid step walks every data row at most once, so the backward
+writes each row once, without accumulation, and is deterministic; it
+checks that (once a ``rows`` tensor) and raises otherwise.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 #: kernel launches since the last ``reset_launch_counts``
 LAUNCHES = {"segment_reduce": 0}
@@ -246,6 +255,61 @@ def segment_reduce_rowwalk(data: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+#: ``rows`` tensors already checked to walk each data row at most once
+_ROWS_CHECKED = WeakIdKeyDictionary()
+
+
+def _check_rows_unique(rows: torch.Tensor) -> None:
+    if rows in _ROWS_CHECKED:
+        return
+    if torch.unique(rows).numel() != rows.numel():
+        raise ValueError("segment_reduce: the backward needs a walk that "
+                         "reads each data row at most once (rows repeat)")
+    _ROWS_CHECKED[rows] = True
+
+
+def segment_reduce_grad(grad: torch.Tensor, offsets: torch.Tensor,
+                        rows: torch.Tensor | None,
+                        n_rows: int) -> torch.Tensor:
+    """The gradient of the segment sums with respect to ``data``
+    ([n_rows, C]): walk entry ``j`` (in ``offsets[s] .. offsets[s+1]``)
+    gets ``grad[s]``, written to data row ``rows[j]`` (or ``j``); rows
+    no segment walks get zero.  A gather and one unaccumulated write."""
+    S, C = offsets.shape[0] - 1, grad.shape[1]
+    n_walk = n_rows if rows is None else rows.shape[0]
+    if S <= 0 or n_walk == 0:
+        return grad.new_zeros((n_rows, C))
+    pos = torch.arange(n_walk, dtype=torch.int64, device=grad.device)
+    seg = torch.searchsorted(offsets[1:], pos, right=True)
+    walked = (pos >= offsets[0]) & (seg < S)
+    g_walk = torch.where(walked[:, None],
+                         grad[torch.clamp_max(seg, S - 1)], 0.0)
+    if rows is None:
+        return g_walk
+    _check_rows_unique(rows)
+    out = grad.new_zeros((n_rows, C))
+    out[rows] = g_walk
+    return out
+
+
+class SegmentSumVJP(torch.autograd.Function):
+    """``forward(fwd, data, offsets, rows)`` returns ``fwd(data)`` (the
+    segment sums of the CSR walk); the backward is
+    ``segment_reduce_grad``."""
+
+    @staticmethod
+    def forward(ctx, fwd, data, offsets, rows):
+        ctx.save_for_backward(offsets, rows)
+        ctx.n_rows = data.shape[0]
+        return fwd(data)
+
+    @staticmethod
+    def backward(ctx, grad):
+        offsets, rows = ctx.saved_tensors
+        return (None, segment_reduce_grad(grad, offsets, rows, ctx.n_rows),
+                None, None)
+
+
 def segment_reduce(data: torch.Tensor, seg: torch.Tensor | None,
                    num_segments: int, *, rows: torch.Tensor | None = None,
                    offsets: torch.Tensor | None = None,
@@ -268,16 +332,25 @@ def segment_reduce(data: torch.Tensor, seg: torch.Tensor | None,
                          f"entries for {num_segments} segments")
     n_walk = _check(data, offsets, rows)
     if data.device.type == "cpu":
-        return segment_reduce_plain(data, offsets, rows)
-    if data.device.type != "cuda":
+        def fwd(d):
+            return segment_reduce_plain(d, offsets, rows)
+    elif data.device.type != "cuda":
         raise ValueError(f"segment_reduce: no kernel or plain version for "
                          f"device {data.device}")
-    if n_walk == 0 or num_segments == 0 or data.shape[1] == 0:
+    elif n_walk == 0 or num_segments == 0 or data.shape[1] == 0:
         # nothing to walk: exact zeros, nothing launched or counted
-        return torch.zeros((num_segments, data.shape[1]),
-                           dtype=torch.float32, device=data.device)
-    if not _fits_staged(data, offsets, rows):
-        return segment_reduce_rowwalk(data, offsets, rows)
-    if schedule is None:
-        schedule = reduce_schedule(offsets)
-    return _launch(data, offsets, rows, schedule)
+        def fwd(d):
+            return torch.zeros((num_segments, d.shape[1]),
+                               dtype=torch.float32, device=d.device)
+    elif not _fits_staged(data, offsets, rows):
+        def fwd(d):
+            return segment_reduce_rowwalk(d, offsets, rows)
+    else:
+        if schedule is None:
+            schedule = reduce_schedule(offsets)
+
+        def fwd(d):
+            return _launch(d, offsets, rows, schedule)
+    if torch.is_grad_enabled() and data.requires_grad:
+        return SegmentSumVJP.apply(fwd, data, offsets, rows)
+    return fwd(data)

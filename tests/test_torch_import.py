@@ -29,7 +29,11 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.kernels.build, repro_torch.core.experiments, "
             "repro_torch.models, repro_torch.configs, repro_torch.serve, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.decode_attention, repro_torch.kernels.ops; "
+            "repro_torch.kernels.decode_attention, repro_torch.kernels.ops, "
+            "repro_torch.tune, repro_torch.tune.soft, "
+            "repro_torch.tune.objectives, repro_torch.tune.optimizers, "
+            "repro_torch.tune.pareto, repro_torch.ckpt, "
+            "repro_torch.ckpt.checkpoint, repro_torch.core.serialize; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); assert not bad")

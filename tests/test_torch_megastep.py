@@ -127,7 +127,7 @@ def test_mega_refuses_pallas_and_temperature():
     with pytest.raises(ValueError, match="reduce must be 'fused' or 'scat'"):
         fluidP.make_step_fn(scn, PAPER_CONFIG, use_kernels="mega",
                             reduce="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
+    with pytest.raises(ValueError, match="hard dynamics only"):
         _paper_sweep().run(n_steps=10, device="cpu", use_kernels="mega",
                            temperature=0.1)
 
