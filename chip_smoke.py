@@ -60,7 +60,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
                bytes the entries hold; the paper batch with another
                ``dcqcn.kmin`` is a structural hit, bitwise equal to its
                eager run; the cache is cleared before serving;
- 10. attention — ``flash_attention`` (both routes: the tensor-core
+ 10. whatif  — the what-if query service (``repro_torch.serve.whatif``)
+               on the card: benchmarks/serve_bench.py's replay (96
+               queries of 4 CC stacks x incast 4/6/7, width 8): one
+               capture, queries/s, latency p50/p99, each (workload, CC
+               stack) bitwise equal to a standalone card ``Sweep.run``,
+               the fake-clock burst probe (16 -> 4 admitted, 12
+               throttled); then 16 of the dc cell's combinations (4 a
+               reaction) as queries, on the flow and the megakernel tier,
+               through ``auto_drain`` and, one batch, down the fleet road,
+               each answer bitwise equal to its run in phase 6;
+ 11. fleet   — the dc sweep through ``run_fleet`` (2 worker threads, 4
+               streamed shards, a journal): merged bitwise equal to phase
+               6, one capture, peak memory beside phase 6's, the overhead
+               against its wall; a plan at phase 6's check depth killed
+               after 2 shards and resumed, bitwise;
+ 12. pacer   — ``erp_chunk_schedule`` of examples/paced_collectives.py's
+               tree for PFC_ONLY, DCQCN and DCQCN_REV on the card (every CC
+               kernel once a step) against the same schedule on the CPU
+               (child processes) at the golden tolerance;
+ 13. attention — ``flash_attention`` (both routes: the tensor-core
                kernel for bf16 at d 64/128, the CUDA-core kernel for
                float32 and other widths; each call asserts its route) and
                ``decode_attention`` against their plain versions (3e-5
@@ -78,7 +97,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                launches bitwise equal) and at recurrentgemma-9b's bf16
                local attention (d 256); the largest error of each route
                and dtype;
- 11. serve   — gemma2-27b at full width and depth in bfloat16 (random
+ 14. serve   — gemma2-27b at full width and depth in bfloat16 (random
                weights from seed 0 on the card): 8 ragged prompts of
                4100-4200 tokens on 4 slots, 16 new tokens each, through
                ``ServingEngine.generate`` (its decode step captured once
@@ -90,20 +109,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
                (captured and eager wall, busy ms, idle share); then at
                batch 1 the prefill and first decode logits against the
                plain path;
- 12. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
+ 15. serve_f32 — gemma2-27b at full width cut to 2 layers (one local, one
                global) in float32: greedy tokens equal to the plain path,
                every flash launch on the CUDA-core route, one capture an
                engine; time to first token and seconds a prefill call on
                both paths;
- 13. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
+ 16. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
                card and on the CPU: equal tokens (CUDA-core route); the
                serving launcher's ``--smoke`` run on the card;
- 14. tune    — the autotuning path (``repro_torch.tune``): the paper sweep
+ 17. tune    — the autotuning path (``repro_torch.tune``): the paper sweep
                at temperature 0 bitwise the default run (a cache hit, the
                same launches); the soft model at tau 0.2 on the card within
                2e-3 of the CPU, and the kernel tiers refusing it;
                ``value_and_grad`` on paper-default DCQCN at the 8-sender
-               incast, 3000 steps: twice bitwise, against the CPU (value
+               incast, 1500 steps: twice bitwise, against the CPU (value
                2e-3, gradient cosine 0.99), gen_np / rp / segment_reduce
                launched at their exact counts in the forward and nothing in
                the backward, forward and backward ms a step, peak memory,
@@ -565,7 +584,8 @@ def _seg_cases(device):
         for w, C in enumerate(chans):
             data = torch.randn((n, C), generator=g, device=device)
             name = f"{tag}{w}_C{C}" if tag == "hot" else f"{tag}_C{C}"
-            cases.append((name, data, plan.seg_rows, plan.seg_off))
+            walk = plan.seg_rows[:int(plan.seg_off[-1])]  # the read rows
+            cases.append((name, data, walk, plan.seg_off))
     z = torch.zeros((1,), dtype=torch.int64, device=device)
     cases.append(("N0", torch.zeros((0, 2), device=device), None,
                   z.expand(6).contiguous()))
@@ -998,15 +1018,19 @@ def phase_golden(device) -> dict:
 # phase 6: datacenter scale (the main path whose launches are counted)
 # ---------------------------------------------------------------------------
 
-def _dc_sweep():
-    from repro_torch.core import CCSpec, ScenarioSpec, Sweep, cc
+def _dc_spec():
+    from repro_torch.core import ScenarioSpec
     from repro_torch.net import FabricSpec
-    spec = ScenarioSpec.permutation(4096, seed=0,
+    return ScenarioSpec.permutation(4096, seed=0,
                                     fabric=FabricSpec.dragonfly(4, 4, 4))
+
+
+def _dc_sweep():
+    from repro_torch.core import CCSpec, Sweep, cc
     cfgs = {f"{m}+{n}+{r}": CCSpec(marking=m, notification=n, reaction=r)
             for m in cc.MARKING.names() for n in cc.NOTIFICATION.names()
             for r in cc.REACTION.names()}
-    return Sweep.grid(configs=cfgs, scenarios={"dfly272_f4096": spec})
+    return Sweep.grid(configs=cfgs, scenarios={"dfly272_f4096": _dc_spec()})
 
 
 def phase_dc(device) -> dict:
@@ -1057,7 +1081,7 @@ def phase_dc(device) -> dict:
     assert finite and delivered > 0, rec
     assert res.traces.delivered.shape == (R, n_steps // 100, 4096)
     _launches_once_a_step(launches, n_steps, "dc")
-    rec["result"] = res
+    rec["result"], rec["check_result"] = res, card
     return rec
 
 
@@ -1086,7 +1110,7 @@ def _mega_bound(stg, n_steps: int, block: bool) -> tuple[float, str]:
         "red_perm", "red_off", "pool_perm")]
     trace = 4 * R * F * (3 if block else 2) + 4 * R * F + 16 * R
     nbytes = 2 * _nbytes(st) + _nbytes(scn) + trace
-    entries = int(stg.plan.seg_rows.numel())
+    entries = int(stg.plan.seg_off[-1])
     ops = n_steps * (MEGA_OPS_PER_FLOW_HOP * R * F * H
                      + MEGA_OPS_PER_ENTRY * entries)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1465,7 +1489,398 @@ def phase_capture(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the attention kernels against their plain versions
+# phase 10: the what-if query service
+# ---------------------------------------------------------------------------
+
+#: the reference's serve bench (benchmarks/serve_bench.py): 96 queries of
+#: its 12-combination mix over 4 tenants, 400 steps, a drain every 24
+WHATIF_QUERIES = 96
+WHATIF_STEPS = 400
+WHATIF_DRAIN_EVERY = 24
+WHATIF_OPEN = dict(rate=1e9, burst=10_000, max_queue=256)
+#: dc-scale queries: this many of the dc sweep's combinations a reaction
+WHATIF_DC_PER_REACTION = 4
+#: fields of one point's SimResult held bitwise
+SIM_FIELDS = ("times", "delivered", "rate", "inst_thr", "max_q",
+              "n_paused", "marked", "cnp", "n_nonmin", "ctrl", "pause_time",
+              "vc_stall")
+
+
+def _serve_mix():
+    """benchmarks/serve_bench.py's mix: (label, cfg, spec) of 4 CC stacks
+    x 3 incast workloads, one flow bucket (8) on the default pod."""
+    import dataclasses
+    from repro_torch.core import CCSpec, ScenarioSpec
+    cfgs = {
+        "rev": CCSpec(),
+        "dcqcn": CCSpec(marking="cp", notification="np", reaction="rp"),
+        "swift": CCSpec(reaction="swift"),
+        "rev-tuned": CCSpec().replace(rev=dataclasses.replace(
+            CCSpec().rev, erp_settle=0.9)),
+    }
+    specs = {"in4": ScenarioSpec.incast(4), "in6": ScenarioSpec.incast(6),
+             "in7": ScenarioSpec.incast(7)}
+    return [(f"{cn}/{sn}", cfg, spec)
+            for cn, cfg in cfgs.items() for sn, spec in specs.items()]
+
+
+def _sim_same(a, b) -> bool:
+    """Two one-point ``SimResult`` views bitwise equal: every trace field,
+    the time base and every final-state leaf."""
+    import numpy as np
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        x, y = np.asarray(x), np.asarray(y)
+        return x.shape == y.shape and np.array_equal(
+            x, y, equal_nan=x.dtype.kind == "f")
+
+    if not all(same(getattr(a, f), getattr(b, f)) for f in SIM_FIELDS):
+        return False
+    for f in a.final._fields:
+        x, y = getattr(a.final, f), getattr(b.final, f)
+        pairs = [(x[k], y[k]) for k in x] if isinstance(x, dict) else \
+            [(x, y)]
+        if not all(same(u, v) for u, v in pairs):
+            return False
+    return True
+
+
+def _dc_queries():
+    """``WHATIF_DC_PER_REACTION`` of the dc sweep's combinations for each
+    reaction, as (point name, cfg): dc-scale what-if queries."""
+    from repro_torch.core import cc
+    by_reaction = {}
+    for p in _dc_sweep().points:
+        reaction = p.name.split("/")[0].split("+")[2]
+        by_reaction.setdefault(reaction, []).append((p.name, p.cfg))
+    return [q for r in cc.REACTION.names()
+            for q in by_reaction[r][:WHATIF_DC_PER_REACTION]]
+
+
+def _engine(device, *, auto_drain: bool = False, **cfg):
+    from repro_torch.serve.whatif import (AdmissionConfig, CCQueryEngine,
+                                          EngineConfig)
+    return CCQueryEngine(EngineConfig(
+        max_batch=8, admission=AdmissionConfig(**WHATIF_OPEN),
+        device=device, **cfg), auto_drain=auto_drain)
+
+
+def _ask_all(eng, queries) -> tuple[list, float]:
+    """Submit ``queries``, drain, return (results in order, wall s)."""
+    import torch
+    from repro_torch.serve.whatif import Admitted
+    t0 = time.perf_counter()
+    tickets = []
+    for q in queries:
+        out = eng.submit(q)
+        assert isinstance(out, Admitted), out
+        tickets.append(out.ticket)
+    eng.drain()
+    torch.cuda.synchronize()
+    return [eng.result(t) for t in tickets], time.perf_counter() - t0
+
+
+def _serve_replay(device) -> dict:
+    """The serve bench's replay on the card: one capture for the whole
+    mix, the launches, latency and queries/s; one query per (workload,
+    CC stack) bitwise equal to a standalone card ``Sweep.run`` of its
+    point; the fake-clock burst probe."""
+    import torch
+    from repro_torch.core import Sweep
+    from repro_torch.serve.whatif import (AdmissionConfig, Admitted,
+                                          CCQueryEngine, EngineConfig,
+                                          Throttled, WhatIfQuery)
+    mix = _serve_mix()
+    eng = _engine(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    first = {}
+    for i in range(WHATIF_QUERIES):
+        label, cfg, spec = mix[i % len(mix)]
+        out = eng.submit(WhatIfQuery(cfg=cfg, scenario=spec,
+                                     n_steps=WHATIF_STEPS, label=label,
+                                     tenant=f"t{i % 4}"))
+        assert isinstance(out, Admitted), out
+        first.setdefault(label, out.ticket)
+        if (i + 1) % WHATIF_DRAIN_EVERY == 0:
+            eng.drain()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    m = eng.metrics()
+    solo = {label: _sim_same(eng.result(first[label]).result, Sweep(
+        [("p", cfg, spec)]).run(n_steps=WHATIF_STEPS, device=device)["p"])
+            for label, cfg, spec in mix}
+    clk = [0.0]
+    probe = CCQueryEngine(EngineConfig(admission=AdmissionConfig(
+        rate=10.0, burst=4, max_queue=8), device=device),
+        clock=lambda: clk[0])
+    burst = [probe.submit(WhatIfQuery(cfg=mix[0][1], scenario=mix[0][2],
+                                      n_steps=WHATIF_STEPS))
+             for _ in range(16)]
+    rec = {"queries": WHATIF_QUERIES, "steps": WHATIF_STEPS,
+           "wall_s": wall, "queries_per_s": WHATIF_QUERIES / wall,
+           "batches": m["batches"], "mean_occupancy": m["mean_occupancy"],
+           "cache": m["exec_cache"], "captures": m["exec_cache"]["misses"],
+           "hit_rate": m["exec_cache"]["hit_rate"],
+           "latency_s": m["latency_s"], "queue_wait_s": m["queue_wait_s"],
+           "run_s": m["run_s"], "signatures": m["signatures"],
+           "launches": launches,
+           "bitwise_equal_standalone": solo,
+           "throttle_probe": {
+               "submitted": len(burst),
+               "admitted": sum(isinstance(o, Admitted) for o in burst),
+               "throttled": sum(isinstance(o, Throttled) for o in burst),
+               "queue_full": probe.metrics()["admission"]["queue_full"]}}
+    emit({"phase": "whatif", "check": "serve_mix", **rec})
+    assert rec["captures"] == 1 and m["signatures"] == 1, rec["cache"]
+    assert m["exec_cache"]["hits"] == m["batches"] - 1, rec["cache"]
+    assert all(solo.values()), solo
+    assert rec["throttle_probe"] == {"submitted": 16, "admitted": 4,
+                                     "throttled": 12, "queue_full": 0}, rec
+    _expect(launches, "whatif serve mix", cc=m["batches"] * WHATIF_STEPS,
+            seg=3 * m["batches"] * WHATIF_STEPS)
+    return rec
+
+
+def phase_whatif(device, dc: dict) -> dict:
+    """The what-if query service on the card: the serve bench's replay,
+    then 16 dc-scale queries on the flow tier and the megakernel tier,
+    through ``auto_drain`` and through the fleet road, each answer
+    bitwise equal to its run in phase 6's dc sweep."""
+    from repro_torch.core import SWEEP_EXEC_CACHE
+    from repro_torch.serve.whatif import WhatIfQuery
+    t_phase = time.perf_counter()
+    rec = {"phase": "whatif", "serve_mix": _serve_replay(device)}
+    want = dc["result"]
+    spec = _dc_spec()
+    queries = [WhatIfQuery(cfg=cfg, scenario=spec, n_steps=DC_STEPS,
+                           trace_every=100, label=name)
+               for name, cfg in _dc_queries()]
+    names = [q.label for q in queries]
+    n_batches = -(-len(queries) // 8)
+    windows = DC_STEPS // 100
+    answers = {}
+    for tier, kw in (("flow", {}), ("mega", MEGA)):
+        eng = _engine(device, **kw)
+        reset_counts()
+        got, wall = _ask_all(eng, queries)
+        launches = counts()
+        m = eng.metrics()
+        answers[tier] = got
+        row = {"queries": len(queries), "steps": DC_STEPS, "width": 8,
+               "wall_s": wall, "queries_per_s": len(queries) / wall,
+               "run_steps_per_s": len(queries) * DC_STEPS / wall,
+               "cache": m["exec_cache"], "latency_s": m["latency_s"],
+               "launches": launches,
+               "bitwise_equal_dc": [_sim_same(r.result, want[n])
+                                    for r, n in zip(got, names)]}
+        if tier == "mega":
+            row["geometry"] = _geometry("megastep_block", 8)
+        rec[f"dc_{tier}"] = row
+        emit({"phase": "whatif", "check": f"dc_{tier}", **row})
+        assert all(row["bitwise_equal_dc"]), row["bitwise_equal_dc"]
+        if tier == "mega":
+            _expect(launches, "whatif dc mega", block=n_batches * windows)
+        else:
+            _expect(launches, "whatif dc flow", cc=n_batches * DC_STEPS,
+                    seg=3 * n_batches * DC_STEPS)
+
+    # the same queries through the background drain
+    reset_counts()
+    t0 = time.perf_counter()
+    with _engine(device, auto_drain=True) as eng:
+        tickets = [eng.submit(q).ticket for q in queries]
+        got = [eng.wait(t, timeout=600) for t in tickets]
+    wall = time.perf_counter() - t0
+    row = {"wall_s": wall, "launches": counts(),
+           "bitwise_equal_sync": [r is not None
+                                  and _sim_same(r.result, s.result)
+                                  for r, s in zip(got, answers["flow"])]}
+    rec["dc_auto_drain"] = row
+    emit({"phase": "whatif", "check": "dc_auto_drain", **row})
+    assert all(row["bitwise_equal_sync"]), row
+
+    # one batch down the fleet road (streamed shards of 4 on 2 workers)
+    eng = _engine(device, fleet_threshold=0.0)
+    reset_counts()
+    got, wall = _ask_all(eng, queries[:8])
+    row = {"queries": 8, "wall_s": wall, "launches": counts(),
+           "via_fleet": [r.via_fleet for r in got],
+           "cache": eng.metrics()["exec_cache"],
+           "bitwise_equal_inline": [_sim_same(r.result, s.result) for r, s
+                                    in zip(got, answers["flow"][:8])]}
+    rec["dc_via_fleet"] = row
+    emit({"phase": "whatif", "check": "dc_via_fleet", **row})
+    assert all(row["via_fleet"]) and all(row["bitwise_equal_inline"]), row
+    _expect(row["launches"], "whatif via fleet", cc=2 * DC_STEPS,
+            seg=6 * DC_STEPS)
+
+    SWEEP_EXEC_CACHE.clear()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "whatif", "seconds": rec["seconds"]})
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dc sweep through the fleet
+# ---------------------------------------------------------------------------
+
+FLEET_CONFIG = dict(n_workers=2, n_shards=4)
+
+
+def phase_fleet(device, dc: dict) -> dict:
+    """``run_fleet`` of the dc sweep on the card (2 worker threads, 4
+    streamed shards, journaled): merged bitwise equal to phase 6's
+    result, one capture, peak memory beside the dc phase's, the overhead
+    against its wall; then a plan of the same sweep at phase 6's check
+    depth preempted after 2 shards and resumed from its journal, bitwise
+    equal to phase 6's card run of that depth."""
+    import tempfile
+    import torch
+    from repro_torch.core import SWEEP_EXEC_CACHE
+    from repro_torch.fleet import (FleetConfig, FleetRunner, PreemptedError,
+                                   plan_sweep, run_fleet)
+    t_phase = time.perf_counter()
+    sweep = _dc_sweep()
+    SWEEP_EXEC_CACHE.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_fleet(sweep, n_steps=DC_STEPS, trace_every=100,
+                        config=FleetConfig(**FLEET_CONFIG),
+                        journal=os.path.join(tmp, "full"), device=device)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        same, abs_d, _ = _result_diff(out.result, dc["result"])
+        rec = {"phase": "fleet", "runs": len(sweep.points),
+               "steps": DC_STEPS, "config": FLEET_CONFIG,
+               "shards": len(out.plan.shards),
+               "width": out.plan.buckets[0].width, "wall_s": wall,
+               "dc_wall_s": dc["wall_s"], "overhead": wall / dc["wall_s"] - 1,
+               "stats": out.stats.to_dict(), "launches": launches,
+               "bitwise_equal_dc": same, "max_abs_diff": abs_d,
+               "max_memory_allocated": peak,
+               "peak_above_start": peak - base,
+               "dc_max_memory_allocated": dc["max_memory_allocated"]}
+        emit(rec)
+        assert same, ("fleet differs from the dc sweep", abs_d)
+        assert out.stats.compiles == 1 and out.stats.abandoned == 0, rec
+        _expect(launches, "fleet dc", cc=len(out.plan.shards) * DC_STEPS)
+
+        # preempted after 2 committed shards (one worker), then resumed:
+        # the same sweep's plan at the dc phase's check depth (the shards'
+        # capture serves it: depth is no part of a window's structure),
+        # held to the dc phase's card run of that depth
+        plan = plan_sweep(sweep, DC_CHECK_STEPS, 100, device=device,
+                          n_shards=FLEET_CONFIG["n_shards"])
+        journal = os.path.join(tmp, "preempt")
+        t0 = time.perf_counter()
+        try:
+            FleetRunner(plan, FleetConfig(n_workers=1, preempt_after=2),
+                        journal=journal).run()
+            preempted = False
+        except PreemptedError:
+            preempted = True
+        again = FleetRunner(plan, FleetConfig(n_workers=2),
+                            journal=journal).run()
+        rec["preempt_resume"] = {
+            "steps": DC_CHECK_STEPS, "preempted": preempted,
+            "resumed": again.stats.resumed,
+            "executed": again.stats.executed,
+            "compiles": again.stats.compiles,
+            "seconds": time.perf_counter() - t0,
+            "bitwise_equal_dc": _result_diff(again.result,
+                                             dc["check_result"])[0]}
+    emit({"phase": "fleet", "check": "preempt_resume",
+          **rec["preempt_resume"]})
+    pr = rec["preempt_resume"]
+    assert pr["preempted"] and pr["resumed"] == 2 and pr["executed"] == 2, pr
+    assert pr["bitwise_equal_dc"], pr
+    SWEEP_EXEC_CACHE.clear()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "fleet", "seconds": rec["seconds"]})
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the ERP pacer
+# ---------------------------------------------------------------------------
+
+#: examples/paced_collectives.py's gradient tree: 25 fp32 layers of
+#: 1024 x 1024, reduced in 8 chunks across 2 pods
+PACER_LAYERS, PACER_CHUNKS, PACER_PODS = 25, 8, 2
+PACER_SCHEMES = ("PFC_ONLY", "DCQCN", "DCQCN_REV")
+
+
+def _pacer_chunks(device=None) -> list:
+    """``chunk_bytes_of`` the example's tree: numpy arrays, or tensors on
+    ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import chunk_bytes_of
+    zeros = (lambda: np.zeros((1024, 1024), np.float32)) if device is None \
+        else (lambda: torch.zeros((1024, 1024), device=device))
+    return chunk_bytes_of({f"layer{i}": zeros() for i in range(PACER_LAYERS)},
+                          PACER_CHUNKS)
+
+
+def pacer_cpu(scheme: str) -> dict:
+    """One scheme's schedule on the CPU (a child process, one thread)."""
+    import torch
+    from repro_torch.dist import erp_chunk_schedule
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = erp_chunk_schedule(_pacer_chunks(), n_pods=PACER_PODS,
+                             scheme_name=scheme, device="cpu")
+    return {**out, "seconds": time.perf_counter() - t0}
+
+
+def phase_pacer(device, children: dict) -> dict:
+    """``erp_chunk_schedule`` of the example's tree for each scheme on the
+    card (every CC kernel once a step; DCQCN_REV's reaction is
+    ``erp_step``), against the same schedule on the CPU (child processes
+    started with the script) at the golden tolerance."""
+    import numpy as np
+    from repro_torch.dist import erp_chunk_schedule
+    t_phase = time.perf_counter()
+    chunks = _pacer_chunks(device)
+    assert chunks == _pacer_chunks(), "tensor and numpy trees differ"
+    rec = {"phase": "pacer", "chunks": chunks, "bytes": sum(chunks),
+           "pods": PACER_PODS, "schemes": {}}
+    for scheme in PACER_SCHEMES:
+        reset_counts()
+        t0 = time.perf_counter()
+        card = erp_chunk_schedule(chunks, n_pods=PACER_PODS,
+                                  scheme_name=scheme, device=device)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        cpu = _join(children.pop(scheme), f"the pacer's CPU {scheme}")
+        close = all(np.allclose(card[k], cpu[k], rtol=2e-3, atol=0.0)
+                    for k in ("completion_ms", "victim_gbps", "chunks"))
+        steps = launches["gen_np_step"]
+        rec["schemes"][scheme] = {
+            "card": card, "cpu": cpu, "wall_s": wall, "steps": steps,
+            "steps_per_s": steps / wall, "launches": launches,
+            "within_golden_tolerance": close}
+        assert steps > 0 and steps % 1000 == 0, launches
+        _expect(launches, f"pacer {scheme}", cc=steps)
+        assert close and np.isfinite(card["completion_ms"]), (card, cpu)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 ATTN = {
@@ -1786,7 +2201,7 @@ def _flex_call(qT, kT, vT, *, window, valid):
 #: positions, gemma2's heads, float32, softcap 50), its global and its
 #: local layer; then recurrentgemma-9b's local attention in bfloat16
 #: (16/1 heads, d 256, window 2048, no softcap), the route's bf16 work at
-#: a real width (ROADMAP Queue 1 item 3)
+#: a real width (ROADMAP Queue 1 item 1)
 CC_SHAPES = [
     ("global", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", None,
      GEMMA_CAP, GEMMA_SCALE),
@@ -2538,12 +2953,15 @@ def phase_card_vs_cpu(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the autotuning path (repro_torch.tune)
+# phase 17: the autotuning path (repro_torch.tune)
 # ---------------------------------------------------------------------------
 
 #: the tuning problem of benchmarks/tune_bench.py: paper-default DCQCN on
-#: the CLOS incast of 8 senders, 3000 steps, a trace sample every 50
-TUNE_STEPS = 3000
+#: the CLOS incast of 8 senders (benchmarks/tune_bench.py's problem),
+#: a trace sample every 50 steps; 1500 steps where the bench runs 3000,
+#: so the script stays under half its time limit with the what-if, fleet
+#: and pacer phases (the flows open at 1 ms, so 0.5 ms of them is tuned)
+TUNE_STEPS = 1500
 TUNE_TRACE = 50
 TUNE_TAU = 0.2
 #: benchmarks/tune_bench.py's ES_KW and the acceptance GradTuner settings
@@ -2551,9 +2969,9 @@ TUNE_TAU = 0.2
 TUNE_ES_KW = dict(iters=4, pop=8, sigma=0.3, lr=0.4)
 TUNE_GRAD_KW = dict(lr=0.25, temperature=0.2)
 TUNE_GRAD_ITERS = 12
-#: iters run here: each iteration is one 3000-step value_and_grad, 86-119
-#: s eager on the H100 (PR 19's development runs), so the 12 of the
-#: acceptance test (13 calls) do not fit the script's time limit
+#: iters run here: each iteration is one eager value_and_grad (75-119 s
+#: at 3000 steps on the H100), so the 12 of the acceptance test (13
+#: calls) do not fit the script's time limit
 TUNE_GRAD_ITERS_RUN = 1
 #: the bitwise-resume check's problem: 3 senders, flows from 0
 TUNE_RESUME_STEPS = 100
@@ -2745,7 +3163,7 @@ def _card():
 
 def tune_cpu_refs() -> dict:
     """The CPU side of the tune phase's card-vs-CPU checks (a child
-    process): the soft sweep's delivered bytes and the 3000-step
+    process): the soft sweep's delivered bytes and the ``TUNE_STEPS``
     ``value_and_grad`` at theta0."""
     import torch
     from repro_torch.tune import Evaluator, TuneProblem
@@ -2774,7 +3192,7 @@ def tune_grad_autotune() -> dict:
                   iters=TUNE_GRAD_ITERS_RUN, **TUNE_GRAD_KW)
     return {"kw": {**TUNE_GRAD_KW, "iters": TUNE_GRAD_ITERS_RUN},
             "iters_cut_from": TUNE_GRAD_ITERS,
-            "cut_reason": "one 3000-step eager value_and_grad an "
+            "cut_reason": f"one {TUNE_STEPS}-step eager value_and_grad an "
             "iteration on the card",
             "seconds": time.perf_counter() - t0,
             "trace_values": gr.trace.value.tolist(), **gr.to_record()}
@@ -3004,6 +3422,37 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     phase_build()
+    pacer_cpu = {}
+    try:
+        rows = _phases(device, pacer_cpu)
+    finally:
+        for proc in pacer_cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _paths_launches(rows: list, paths: dict) -> None:
+    """Each kernel row's launches on each of ``paths`` (name -> that
+    path's launch counts) where it ran there, as ``launches_by_path``."""
+    for row in rows:
+        by = {p: c[row["name"]] for p, c in paths.items()
+              if c.get(row["name"])}
+        if by:
+            row.setdefault("launches_by_path", {}).update(by)
+
+
+def _phases(device, pacer_cpu: dict) -> list:
+    """Phases 3-17; returns the kernels line's rows.  The pacer's CPU
+    schedules (``pacer_cpu``, a process each) run beside the what-if and
+    fleet phases, after the phases that time eager host work."""
     kern = phase_kernels(device)
     seg = phase_segment_reduce(device)
     phase_paper(device)
@@ -3015,6 +3464,20 @@ def main() -> int:
     hot = phase_hotspot(device)
     seg["launches"] = hot["segment_sum"]["launches"]["segment_reduce"]
     phase_capture(device)          # ends with the sweep cache cleared
+    pacer_cpu.update({s: _child("pacer_cpu", s) for s in PACER_SCHEMES})
+    whatif = phase_whatif(device, dc)
+    fleet = phase_fleet(device, dc)
+    pacer = phase_pacer(device, pacer_cpu)
+    del dc["result"], dc["check_result"]
+    paths = {"whatif_serve_mix": whatif["serve_mix"]["launches"],
+             "whatif_dc_flow": whatif["dc_flow"]["launches"],
+             "whatif_dc_mega": whatif["dc_mega"]["launches"],
+             "whatif_dc_auto_drain": whatif["dc_auto_drain"]["launches"],
+             "whatif_dc_via_fleet": whatif["dc_via_fleet"]["launches"],
+             "fleet_dc": fleet["launches"],
+             **{f"pacer_{k}": v["launches"]
+                for k, v in pacer["schemes"].items()}}
+    _paths_launches(list(kern.values()) + [seg, mblock], paths)
     attn = phase_attention(device)
     serve = phase_serve(device, attn["decode_attention"]["ms"] * 1e3)
     attn["flash_attention"]["launches"] = serve["routes"]["tensor_core"]
@@ -3029,17 +3492,10 @@ def main() -> int:
         row = seg if name == "segment_reduce" else kern[name]
         row["tune_launches"] = \
             tune["value_and_grad"]["launches_forward"][name]
-    rows = list(kern.values()) + [seg, mstep, mblock,
+    return list(kern.values()) + [seg, mstep, mblock,
                                   attn["flash_attention"],
                                   attn["flash_attention_cuda_core"],
                                   attn["decode_attention"]]
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -18,7 +18,11 @@ it reads.  The cache itself is the reference's:
 
 One addition: an entry that has a ``release()`` method gets it called
 when the cache evicts or clears it, so a captured graph gives back its
-private memory pool instead of waiting for the garbage collector.
+private memory pool instead of waiting for the garbage collector.  The
+call comes after the cache's lock is let go (freeing a graph takes the
+card's lock, which a run holds around its own lookups), and an entry
+that is still in use defers its release to its holder
+(``experiments.WindowExecutable``).
 
 The module imports nothing but the standard library: the cache stores
 whatever the builder returns.
@@ -100,10 +104,11 @@ def structural_signature(static: tuple, args) -> tuple:
     return static + (tuple(out),)
 
 
-def _release(entry) -> None:
-    release = getattr(entry, "release", None)
-    if callable(release):
-        release()
+def _release_all(entries) -> None:
+    for entry in entries:
+        release = getattr(entry, "release", None)
+        if callable(release):
+            release()
 
 
 class ExecutableCache:
@@ -147,13 +152,18 @@ class ExecutableCache:
             value = builder()
             self._build_s += time.perf_counter() - t0
             self._entries[key] = value
-            self._evict_past(self._capacity)
-            return value
+            gone = self._evict_past(self._capacity)
+        _release_all(gone)
+        return value
 
-    def _evict_past(self, capacity: int) -> None:
+    def _evict_past(self, capacity: int) -> list:
+        """Drop LRU entries past ``capacity`` (under the lock); returns
+        them for ``_release_all`` once the lock is let go."""
+        gone = []
         while len(self._entries) > capacity:
-            _release(self._entries.popitem(last=False)[1])
+            gone.append(self._entries.popitem(last=False)[1])
             self._evictions += 1
+        return gone
 
     # -- introspection ------------------------------------------------------
 
@@ -167,7 +177,8 @@ class ExecutableCache:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         with self._lock:
             self._capacity = int(capacity)
-            self._evict_past(self._capacity)
+            gone = self._evict_past(self._capacity)
+        _release_all(gone)
 
     def stats(self) -> CacheStats:
         with self._lock:
@@ -185,8 +196,9 @@ class ExecutableCache:
         """Drop (and release) every entry; not counted as evictions;
         stats persist."""
         with self._lock:
-            while self._entries:
-                _release(self._entries.popitem(last=False)[1])
+            gone = list(self._entries.values())
+            self._entries.clear()
+        _release_all(gone)
 
     def __len__(self) -> int:
         with self._lock:

@@ -30,14 +30,17 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import threading
 from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import fluid_step as mega
-from ..kernels.capture import CapturedGraph, warm_up
+from ..kernels.capture import CapturedGraph, card_lock, warm_up
 from . import cc
 from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
@@ -622,16 +625,30 @@ class WindowExecutable:
     is captured as a CUDA graph whose last ops copy the new state into
     ``state``, and every later window is one replay.  A failed capture
     raises.  On the CPU the same window runs eagerly over the same
-    tensors."""
+    tensors.
 
-    def __init__(self, inputs: WindowInputs, static: WindowStatic):
+    One run at a time: the entry's tensors hold one batch, so a run takes
+    the entry for itself from ``bind`` through its last ``advance`` and
+    the copy of its final state (``_sweep_executable``, a context
+    manager).  The cache's ``release()`` of an entry that a run holds
+    waits for that run to let go."""
+
+    def __init__(self, inputs: WindowInputs, static: WindowStatic,
+                 token: int = 0):
         self.inputs = _tree_map(torch.clone, inputs)
+        self.device = self.state.nicq.device
         self.window = window_fn(self.inputs, static)
         self.graph = None
         self._first = None
-        if self.state.nicq.device.type == "cuda":
-            self._first = warm_up(self._run_window)
-            self.graph = CapturedGraph(self._run_window)
+        self._bound = token        # the lease whose batch the tensors hold
+        self._lock = threading.Lock()     # held by the run using the entry
+        self._guard = threading.Lock()    # _owner / _retired
+        self._owner = None
+        self._retired = False
+        if self.device.type == "cuda":
+            with card_lock(self.device):
+                self._first = warm_up(self._run_window)
+                self.graph = CapturedGraph(self._run_window)
 
     @property
     def state(self) -> FluidState:
@@ -652,13 +669,14 @@ class WindowExecutable:
         _copy_into(self.state, st)
         return sample
 
-    def bind(self, inputs: WindowInputs) -> None:
+    def bind(self, inputs: WindowInputs, token: int = 0) -> None:
         """Copy a batch of this entry's structure into its tensors (its
         initial state comes with ``start``)."""
         for f in WindowInputs._fields:
             if f != "state":
                 _copy_into(getattr(self.inputs, f), getattr(inputs, f))
         self._first = None
+        self._bound = token
 
     def start(self, st: FluidState) -> None:
         """Load a run's initial state — unless the entry was just built
@@ -675,11 +693,50 @@ class WindowExecutable:
         self.graph.replay()
         return self.graph.out
 
+    def acquire(self) -> bool:
+        """Take the entry for the calling thread's run (blocking while
+        another run holds it); False if it was released meanwhile, and
+        then the caller looks it up again.  A thread that already holds
+        the entry may not take it twice: a nested run of one batch
+        structure would overwrite the outer run's batch."""
+        me = threading.get_ident()
+        if self._owner == me:
+            raise RuntimeError(
+                "this thread already runs this sweep entry: nested runs "
+                "of one batch structure in one thread would overwrite "
+                "each other's batch")
+        self._lock.acquire()
+        with self._guard:
+            if self._retired:
+                self._lock.release()
+                return False
+            self._owner = me
+        return True
+
+    def unlock(self) -> None:
+        """Let the entry go (and free it if the cache released it while
+        the run held it)."""
+        with self._guard:
+            self._owner = None
+            free = self._retired
+        self._lock.release()
+        if free:
+            self._free()
+
     def release(self) -> None:
-        """Free the graph, its memory pool and the owned tensors."""
-        if self.graph is not None:
-            self.graph.release()
-        self.graph = self._first = self.inputs = self.window = None
+        """Free the graph, its memory pool and the owned tensors — once
+        the run holding the entry, if any, lets it go."""
+        with self._guard:
+            self._retired = True
+            if self._owner is not None:
+                return
+        self._free()
+
+    def _free(self) -> None:
+        with card_lock(self.device):
+            if self.graph is not None:
+                self.graph.release()
+            self.graph = self._first = self.inputs = self.window = None
 
 
 #: The sweep-executable cache: every ``Sweep.run`` resolves its trace
@@ -692,29 +749,43 @@ class WindowExecutable:
 SWEEP_EXEC_CACHE = ExecutableCache(capacity=32, name="sweep")
 
 
-def _sweep_executable(static: WindowStatic,
-                      inputs: WindowInputs) -> WindowExecutable:
-    """Resolve one sweep launch to its cached window runner: a miss
-    builds (and, on the card, captures) one from ``inputs``; a hit binds
-    ``inputs`` into the entry's own tensors."""
-    built = []
+_LEASES = itertools.count(1)
 
-    def build():
-        built.append(WindowExecutable(inputs, static))
-        return built[0]
 
-    entry = SWEEP_EXEC_CACHE.get_or_build(
-        structural_signature(static, inputs), build)
-    if not built:
-        entry.bind(inputs)
-    return entry
+@contextlib.contextmanager
+def _sweep_executable(static: WindowStatic, inputs: WindowInputs):
+    """``with _sweep_executable(static, inputs) as runner:`` — one sweep
+    launch's cached window runner, held by the calling thread for the
+    block: a miss builds (and, on the card, captures) an entry from
+    ``inputs``; otherwise ``inputs`` are bound into the entry's own
+    tensors once the run has it to itself.  Other threads' runs of the
+    same structure wait; on the card every run's device work waits for
+    the card's lock (``kernels.capture.card_lock``), held here for the
+    block."""
+    token = next(_LEASES)
+    key = structural_signature(static, inputs)
+    with card_lock(inputs.state.nicq.device):
+        while True:
+            entry = SWEEP_EXEC_CACHE.get_or_build(
+                key, lambda: WindowExecutable(inputs, static, token))
+            if entry.acquire():
+                break
+        try:
+            if entry._bound != token:
+                entry.bind(inputs, token)
+            yield entry
+        finally:
+            entry.unlock()
 
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (run axis sharded across devices) comes with the "
-            "port of repro.dist / repro.fleet, a later slice")
+            "Sweep.run(mesh=...) is not supported by the port: on one card "
+            "there is no run axis to shard across devices. Run a sweep too "
+            "large for one launch through repro_torch.fleet.run_fleet "
+            "(shards, streamed traces, resume), as the reference's README "
+            "advises; see ROADMAP.md, Queue 1 (dist/sharding)")
 
 
 class Sweep:
@@ -906,7 +977,9 @@ class Sweep:
         the card and their plain versions on the CPU.
         ``use_kernels="mega"`` makes each trace window of the whole
         batch one ``megastep_block`` launch (not with ``"pallas"``).
-        Not ported yet (NotImplementedError): ``mesh=``.
+        ``mesh=`` raises NotImplementedError: one card has no run axis to
+        shard; ``repro_torch.fleet.run_fleet`` takes a sweep too large
+        for one launch.
 
         ``temperature`` > 0 runs the soft-relaxed dynamics of
         ``repro_torch.tune`` (every run of the batch at that temperature,
@@ -920,17 +993,20 @@ class Sweep:
         ``min_switches`` pin the batch geometry as in the reference;
         results are unaffected (padding runs are dropped on return).
         """
-        static, inp, n_samples = self._prepare(
-            n_steps, trace_every, mesh=mesh, reduce=reduce,
-            use_kernels=use_kernels, pad_runs_to=pad_runs_to,
-            min_delay_slots=min_delay_slots, dense_rows=dense_rows,
-            temperature=temperature, min_switches=min_switches,
-            device=device)
-        runner = _sweep_executable(static, inp)
-        final, tr = decimating_scan(None, inp.state, n_samples,
-                                    static.trace_every, static.dt,
-                                    self.n_vcs, runner=runner)
-        return self.collect(final, tr, static.trace_every)
+        _refuse_mesh(mesh)
+        dev = resolve_device(device)
+        with card_lock(dev):
+            static, inp, n_samples = self._prepare(
+                n_steps, trace_every, mesh=mesh, reduce=reduce,
+                use_kernels=use_kernels, pad_runs_to=pad_runs_to,
+                min_delay_slots=min_delay_slots, dense_rows=dense_rows,
+                temperature=temperature, min_switches=min_switches,
+                device=dev)
+            with _sweep_executable(static, inp) as runner:
+                final, tr = decimating_scan(None, inp.state, n_samples,
+                                            static.trace_every, static.dt,
+                                            self.n_vcs, runner=runner)
+            return self.collect(final, tr, static.trace_every)
 
     def collect(self, final: FluidState, traces: TraceSample,
                 trace_every: int) -> "SweepResult":

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -184,7 +185,9 @@ class ReducePlan(NamedTuple):
     ``[R*L]`` link rows.  The segment-sum engines walk the CSR
     ``seg_rows``/``seg_off`` over the R*S real queues (segment ``r*S +
     q``; the scratch queue, which only ever holds zeros, is left out);
-    ``seg_ids`` is each walk entry's segment; ``seg_sched`` the
+    past ``seg_off[-1]`` the walk lists the scratch rows, which no
+    segment reads, so its length is structural (R*F*K*H); ``seg_ids`` is
+    each walk entry's segment (R*S for that tail); ``seg_sched`` the
     ``segment_reduce`` kernel's work items over that CSR, shared by every
     walk of the step.  ``pool_off`` is the per-run CSR of the pool over
     ``ScenarioDev.pool_perm``.
@@ -192,8 +195,8 @@ class ReducePlan(NamedTuple):
 
     dense_src: "torch.Tensor | None"   # [rows, R, S] int64
     pool_src: torch.Tensor             # [rows_pool, R, n_switches] int64
-    seg_rows: torch.Tensor             # [M] int64 rows of [R*F*K*H]
-    seg_ids: torch.Tensor              # [M] int64 segment r*S + q
+    seg_rows: torch.Tensor             # [R*F*K*H] int64 rows, walk order
+    seg_ids: torch.Tensor              # [R*F*K*H] int64 segment r*S + q
     seg_off: torch.Tensor              # [R*S + 1] int64 CSR offsets
     seg_sched: ReduceSchedule          # the kernel's work items
     pool_off: torch.Tensor             # [R, n_switches + 1] int64
@@ -226,15 +229,24 @@ def _digest(x: np.ndarray) -> tuple:
     return (x.shape, x.dtype.str, hashlib.sha1(x.tobytes()).hexdigest())
 
 
+_MEMO_LOCK = threading.Lock()
+
+
 def _memo_lru(cache: collections.OrderedDict, maxsize: int, key, fn):
-    """Bounded content-keyed LRU for the host-side incidence cache."""
-    hit = cache.get(key)
-    if hit is not None:
+    """Bounded content-keyed LRU for the host-side incidence cache and
+    the upload cache; safe from several threads (``fn`` runs outside the
+    lock: two threads may both compute a value, the first stored wins)."""
+    with _MEMO_LOCK:
+        hit = cache.get(key)
+        if hit is not None:
+            cache.move_to_end(key)
+            return hit
+    out = fn()
+    with _MEMO_LOCK:
+        out = cache.setdefault(key, out)
         cache.move_to_end(key)
-        return hit
-    out = cache[key] = fn()
-    while len(cache) > maxsize:
-        cache.popitem(last=False)
+        while len(cache) > maxsize:
+            cache.popitem(last=False)
     return out
 
 
@@ -589,12 +601,18 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
                         + prow, R * L)
     pool_off = np.concatenate([np.zeros((R, 1), np.int64),
                                np.cumsum(counts, axis=1)], axis=1)
-    # segment CSR over the real queues, run after run
+    # segment CSR over the real queues, run after run; then every other
+    # row (PAD hops: the scratch queue's zeros), which no segment reads,
+    # so the walk is R*F*K*H long whatever the batch holds and batches
+    # of one structure share one cached window
     n_real = off[:, S]                                       # [R]
     seg_rows = np.concatenate([r * N + perm[r, :n_real[r]]
-                               for r in range(R)])
+                               for r in range(R)]
+                              + [r * N + perm[r, n_real[r]:]
+                                 for r in range(R)])
     seg_ids = np.concatenate([r * S + seg[r, :n_real[r]]
-                              for r in range(R)])
+                              for r in range(R)]
+                             + [np.full(R * N - int(n_real.sum()), R * S)])
     walk0 = np.concatenate([[0], np.cumsum(n_real)[:-1]]).astype(np.int64)
     seg_off = np.concatenate([(walk0[:, None] + off[:, :S]).reshape(-1),
                               [int(n_real.sum())]])
@@ -753,8 +771,9 @@ def _step_body(st: FluidState, sd: ScenarioDev, par: StepParams,
                                  offsets=plan.seg_off,
                                  schedule=plan.seg_sched).reshape(R, S, C)
         else:                       # CPU segment sum: index_add_ in order
-            acc = data.new_zeros((R * S, C)).index_add_(
-                0, plan.seg_ids, data[plan.seg_rows]).reshape(R, S, C)
+            acc = data.new_zeros((R * S + 1, C)).index_add_(
+                0, plan.seg_ids, data[plan.seg_rows])[:R * S] \
+                .reshape(R, S, C)   # row R*S: the unread tail of the walk
         # the scratch queue S (PAD hops) only ever sums zeros
         sums = torch.cat([acc, acc.new_zeros((R, 1, C))], dim=1)
         return [sums[:, :, c] for c in range(C)]

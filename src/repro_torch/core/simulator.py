@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels import fluid_step as mega
+from ..kernels.capture import card_lock
 from . import cc
 from .fluid import (FluidState, Scenario, _step_body, check_routing_paths,
                     dense_reduce_rows, init_state, kernel_tier,
@@ -449,19 +450,20 @@ def run(scn: Scenario, cfg: CCConfig, n_steps: int | None = None,
     dev = resolve_device(device)
     n_samples, k = _resolve_steps(cfg, n_steps, trace_every)
     n_vcs = int(getattr(cfg.link, "n_vcs", 1))
-    st0 = init_state(scn, cfg, device=dev)
-    if kernel_tier(use_kernels) == "mega":
-        block = make_block_fn(scn, cfg, k, reduce=reduce, device=dev)
-        final, tr = decimating_scan(None, st0, n_samples, k,
-                                    float(cfg.sim.dt), n_vcs,
-                                    block_fn=block)
-    else:
-        step = make_step_fn(scn, cfg, reduce=reduce,
-                            use_kernels=use_kernels, device=dev)
-        final, tr = decimating_scan(step, st0, n_samples, k,
-                                    float(cfg.sim.dt), n_vcs)
-    tr = TraceSample(*[x[:, 0].cpu().numpy() for x in tr])
-    fin = state_to_numpy(final)
+    with card_lock(dev):
+        st0 = init_state(scn, cfg, device=dev)
+        if kernel_tier(use_kernels) == "mega":
+            block = make_block_fn(scn, cfg, k, reduce=reduce, device=dev)
+            final, tr = decimating_scan(None, st0, n_samples, k,
+                                        float(cfg.sim.dt), n_vcs,
+                                        block_fn=block)
+        else:
+            step = make_step_fn(scn, cfg, reduce=reduce,
+                                use_kernels=use_kernels, device=dev)
+            final, tr = decimating_scan(step, st0, n_samples, k,
+                                        float(cfg.sim.dt), n_vcs)
+        tr = TraceSample(*[x[:, 0].cpu().numpy() for x in tr])
+        fin = state_to_numpy(final)
     # (i+1)*k first (exact int), then *dt — so decimated times are the
     # same floats as the strided full-resolution times
     times = (np.arange(n_samples) + 1) * k * cfg.sim.dt

@@ -12,14 +12,38 @@ side stream, as ``torch.cuda.graph`` requires), because only the caller
 knows whether that call's result is real work or to be thrown away.
 Capture errors (a host read, an unpinned host copy inside ``fn``) are
 raised; there is no fallback to eager calls.
+
+A capture runs in CUDA's global mode: while it lasts, an allocation or a
+synchronising call from any other thread of the process invalidates it.
+So every capture, and every device section of the port's runs that may
+overlap one (``Sweep.run``, ``stream_sweep``, ``simulator.run``), holds
+the card's lock (``card_lock``): on one card the device work of several
+threads runs one section at a time, while their host work overlaps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import threading
 import time
 
 import torch
+
+_CARD_LOCKS: dict[int, threading.RLock] = {}
+_CARD_LOCKS_GUARD = threading.Lock()
+
+
+def card_lock(device):
+    """The process-wide lock of ``device``'s card (reentrant, so a section
+    may hold it around code that takes it again); a null context for a
+    CPU device, whose work needs no such isolation."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    with _CARD_LOCKS_GUARD:
+        return _CARD_LOCKS.setdefault(idx, threading.RLock())
 
 
 def _counters() -> list[dict]:
@@ -40,6 +64,10 @@ class CapturedGraph:
     capture took.  ``release()`` frees the graph and its pool."""
 
     def __init__(self, fn):
+        with card_lock(torch.device("cuda", torch.cuda.current_device())):
+            self._capture(fn)
+
+    def _capture(self, fn) -> None:
         counters = _counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
@@ -81,9 +109,10 @@ def warm_up(fn):
     asks for), finished before it returns, so its results are safe to
     use and free on the current stream; returns its result.  A later
     side stream waits for the current one before it allocates."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        out = fn()
-    torch.cuda.synchronize()
+    with card_lock(torch.device("cuda", torch.cuda.current_device())):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fn()
+        torch.cuda.synchronize()
     return out

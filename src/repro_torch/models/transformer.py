@@ -33,7 +33,7 @@ from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
 #: the block kinds this port runs
 PORTED_KINDS = ("attn", "local")
 
-_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 3 (the MoE, SSM, "
+_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 1 (the MoE, SSM, "
              "RG-LRU, encoder-decoder and VLM models)")
 
 

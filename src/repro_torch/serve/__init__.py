@@ -1,8 +1,7 @@
 """repro_torch.serve — serving layers (port of ``repro.serve``).
 
   * engine: batched KV-cache token serving (continuous batching)
-
-The what-if CC query service (``repro.serve.whatif``) is not ported yet.
+  * whatif: the what-if CC query service (``repro_torch.serve.whatif``)
 """
 
 from .engine import ServeConfig, ServingEngine

@@ -242,13 +242,15 @@ def test_sweep_entry_owns_its_inputs():
               min_switches=None, mesh=None, device="cpu")
     SWEEP_EXEC_CACHE.clear()
     sa, ia, _ = _paper()._prepare(N_STEPS, TRACE, **kw)
-    entry = _sweep_executable(sa, ia)
+    with _sweep_executable(sa, ia) as entry:
+        pass
     sb, ib, _ = _paper(**{"dcqcn.kmin": [2048.0, 4096.0]})._prepare(
         N_STEPS, TRACE, **kw)
     before = ia.par.mark["cp_kmin"].clone()
-    assert _sweep_executable(sb, ib) is entry
-    assert torch.equal(entry.inputs.par.mark["cp_kmin"],
-                       ib.par.mark["cp_kmin"])
+    with _sweep_executable(sb, ib) as hit:
+        assert hit is entry
+        assert torch.equal(entry.inputs.par.mark["cp_kmin"],
+                           ib.par.mark["cp_kmin"])
     assert torch.equal(ia.par.mark["cp_kmin"], before)
     mine = {id(t) for t in (ia.sd.alt_routes, ia.sd.red_perm, ib.sd.red_perm,
                             ia.state.nicq, ia.plan.seg_rows)}
