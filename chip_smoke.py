@@ -33,14 +33,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
                each grid rerun through the megakernel, bitwise equal;
   6. dc      — the main path at datacenter scale: the 36 CC stage
                combinations x a 4096-flow permutation on a 272-host
-               dragonfly.  A 200-step window runs on the card and on the
-               CPU (plain versions) and must agree; then 5000 steps on
+               dragonfly.  A 100-step window runs on the card and on the
+               CPU (plain versions) and must agree; then 3000 steps on
                the card give steps/s and peak device memory;
-  7. mega    — the dc batch through the megakernel: 200 ``megastep``
+  7. mega    — the dc batch through the megakernel: 100 ``megastep``
                launches held StepTrace by StepTrace to the flow tier
                (timed by CUDA-graph replay), ``megastep_block`` at F in
                {1, 127, 129, 8193} and on the routing grid with two VCs a
-               wire, then the 5000-step dc sweep as one launch per trace
+               wire, then the 3000-step dc sweep as one launch per trace
                window, bitwise equal to phase 6's result, with its
                steps/s and profile; every mega path (here and in phases
                4, 5 and 8) prints its cluster size and the SMs it used;
@@ -114,10 +114,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
                every flash launch on the CUDA-core route, one capture an
                engine; time to first token and seconds a prefill call on
                both paths;
- 16. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
+ 16. serve_families — the RG-LRU, SSM and MoE families in bfloat16
+               (random weights from seed 0): first the attention shapes
+               they bring, each held against its plain version and timed
+               beside its bound, SDPA and (decode at g 16 / d 256 and g 1
+               / d 128) flex_attention; then recurrentgemma-9b,
+               falcon-mamba-7b and deepseek-moe-16b at full width and
+               depth, and mixtral-8x22b at full width cut to 2 layers,
+               one after the other, each freed before the next: 4
+               requests of 1950-2048 tokens on 2 slots (each wave's
+               longest 2048), 16 new tokens, through
+               ``ServingEngine.generate`` (one decode capture each),
+               exact launches by route, TTFT, prefill and decode tok/s,
+               peak memory; the same tokens from an eager loop; one
+               prefill with CUDA events around each mixer, flash call and
+               associative scan, a prefill and an eager decode step
+               profiled; at batch 1 the prefill and first decode logits
+               against the plain path (where there is attention);
+ 17. card_vs_cpu — the gemma2 smoke config serves the same prompts on the
                card and on the CPU: equal tokens (CUDA-core route); the
-               serving launcher's ``--smoke`` run on the card;
- 17. tune    — the autotuning path (``repro_torch.tune``): the paper sweep
+               serving launcher's ``--smoke`` run on the card; the same
+               for the four families' smoke configs (both MoE dispatches,
+               both SSM scan branches, refills of recurrent state) and
+               the launcher's ``--smoke`` run of recurrentgemma-9b;
+ 18. tune    — the autotuning path (``repro_torch.tune``): the paper sweep
                at temperature 0 bitwise the default run (a cache hit, the
                same launches); the soft model at tau 0.2 on the card within
                2e-3 of the CPU, and the kernel tiers refusing it;
@@ -162,9 +182,13 @@ BF16_FLOPS = 989e12
 #: special-function (ex2, tanh) results a clock per SM on Hopper
 SFU_PER_CLOCK = 16
 
-#: steps of the DC-scale run, and of its card-vs-CPU window
-DC_STEPS = 5000
-DC_CHECK_STEPS = 200
+#: steps of the DC-scale run (and of the what-if dc queries and the
+#: fleet's dc run, held to it), and of its card-vs-CPU window (the
+#: megastep comparison and the fleet's preempted plan share it): 3000
+#: and 100, cut from 5000 and 200 to keep the script under 600 s with
+#: the families' serve cells
+DC_STEPS = 3000
+DC_CHECK_STEPS = 100
 #: steps of the hotspot runs (card engines and the CPU window)
 HOT_STEPS = 200
 #: the megakernel tier's Sweep options
@@ -194,8 +218,13 @@ MEGA_OPS_PER_FLOW_HOP = 48
 MEGA_OPS_PER_ENTRY = 8
 
 
+#: the script's start: every phase line carries its seconds since
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "at_s": time.perf_counter() - _T0}),
+          flush=True)
 
 
 def _kmod(name: str):
@@ -1316,15 +1345,23 @@ def phase_hotspot(device) -> dict:
 #: (cell, sweep builder, steps, trace_every, engines): each cell's
 #: captured run against its eager run.  Steps are cut so the eager flow
 #: tier (host-bound, 80-200 steps/s) takes a few seconds a cell; the
-#: paper's flows open at 1 ms, so its cell runs 0.5 ms past that.
+#: paper's flows open at 1 ms, so its cell runs 0.5 ms past that.  The
+#: golden cells run half their files' steps (300 and 500), to keep the
+#: script under 600 s with the families' serve cells.
 CAPTURE_CELLS = [
     ("paper", lambda: _paper_sweep(), 1500, None, ({}, MEGA)),
-    ("golden_routing", lambda: _golden_routing()[0], 600, None, ({}, MEGA)),
-    ("pathology", lambda: _golden_pathology()[0], 1000, None, ({}, MEGA)),
+    ("golden_routing", lambda: _golden_routing()[0], 300, None, ({}, MEGA)),
+    ("pathology", lambda: _golden_pathology()[0], 500, None, ({}, MEGA)),
     ("dc", lambda: _dc_sweep(), 300, 100, ({}, MEGA)),
     ("hotspot", lambda: _hotspot_sweep(), 200, 100,
      ({}, MEGA, {"reduce": "pallas"})),
 ]
+
+
+#: captured windows replayed under torch.profiler a cell (one: the dc
+#: flow window's ~62,000 kernels make processing the trace the phase's
+#: longest part)
+CAPTURE_PROFILED_WINDOWS = 1
 
 
 def _eager_run(sweep, n_steps, trace_every, device, **kw):
@@ -1443,7 +1480,8 @@ def _capture_cell(sweep, n_steps, trace_every, device, kw) -> dict:
            "capture_s": entry.capture_s, "launches": eager_launches,
            "entry_static_bytes": entry.nbytes(),
            "captured_window": _replay_profile(
-               entry, 5, events_only=kw.get("use_kernels") == "mega")}
+               entry, CAPTURE_PROFILED_WINDOWS,
+               events_only=kw.get("use_kernels") == "mega")}
     assert all(same), ("captured run differs from the eager run", rec)
     assert (d.misses, d.hits) == (1, 1), d
     return rec
@@ -2165,11 +2203,13 @@ def _graph_or_events(fn, n: int = 50) -> tuple[float, str]:
                                   f"({type(e).__name__})")
 
 
-def _flex_call(qT, kT, vT, *, window, valid):
+def _flex_call(qT, kT, vT, *, window, valid, scale=GEMMA_SCALE,
+               cap=GEMMA_CAP):
     """One compiled ``flex_attention`` call computing the kernels'
-    function at gemma2's scale and softcap, on [b, heads, len, d]
-    tensors: causal (and the window) for a prefill, the valid slots for
-    a decode query.  Timed here only; the port never calls it."""
+    function at ``scale`` and softcap ``cap`` (gemma2's by default; 0 =
+    none), on [b, heads, len, d] tensors: causal (and the window) for a
+    prefill, the valid slots for a decode query.  Timed here only; the
+    port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -2177,7 +2217,7 @@ def _flex_call(qT, kT, vT, *, window, valid):
     s = kT.shape[2]
 
     def softcap(score, bb, hh, qi, ki):
-        return torch.tanh(score / GEMMA_CAP) * GEMMA_CAP
+        return torch.tanh(score / cap) * cap
 
     if valid is not None:
         def keep(bb, hh, qi, ki):
@@ -2192,8 +2232,9 @@ def _flex_call(qT, kT, vT, *, window, valid):
             return (ki <= qi) & (ki > qi - window)
         bm = create_block_mask(keep, None, None, t, s, device=qT.device)
     fn = torch.compile(flex_attention, dynamic=False)
-    return lambda: fn(qT, kT, vT, score_mod=softcap, block_mask=bm,
-                      scale=GEMMA_SCALE, enable_gqa=True)
+    mod = softcap if cap else None
+    return lambda: fn(qT, kT, vT, score_mod=mod, block_mask=bm,
+                      scale=scale, enable_gqa=True)
 
 
 #: the CUDA-core route's timed shapes: (name, (b, t, h, kv, d), dtype,
@@ -2417,8 +2458,9 @@ def phase_attention(device) -> dict:
     times, sdpa, flex = {}, {}, {}
     for layer, s, n_valid in (("global", SERVE_MAX_LEN, 4215),
                               ("local", 4096, 4096)):
-        q = _randn(g, (b, h, d), bf, device)
-        k, v = [_randn(g, (b, s, kv, d), bf, device) for _ in range(2)]
+        q = _randn(g, (b, h, d), bf, device, FAM_QK_SD)
+        k = _randn(g, (b, s, kv, d), bf, device, FAM_QK_SD)
+        v = _randn(g, (b, s, kv, d), bf, device)
         valid = (torch.arange(s, device=device) < n_valid).expand(b, s)
         valid = valid.contiguous()
         kw = dict(softcap=GEMMA_CAP, scale=GEMMA_SCALE)
@@ -2528,40 +2570,56 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _kernel_vs_plain(params, cfg, prompt, device, route: str) -> dict:
+def _attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that run attention (one flash launch a
+    prefill call, one decode launch a decode step, each)."""
+    from repro_torch.models import transformer as T
+    return sum(k in T.ATTN_KINDS for k in T.layer_kinds(cfg))
+
+
+def _logit_diff(a, b) -> dict:
+    import torch
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "rel": diff / scale,
+            "mean_abs_diff": float((a - b).abs().mean()),
+            "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+            "finite": bool(torch.isfinite(a).all())}
+
+
+def _kernel_vs_plain(params, cfg, prompt, device, route: str,
+                     max_len: int = SERVE_MAX_LEN) -> dict:
     """Prefill and first decode logits at batch 1 through the kernels
     and through the plain path (the same params with ``use_pallas``
-    off): their differences.  Every flash launch takes ``route``."""
+    off): their differences (``prefill``, ``decode``).  Every flash
+    launch takes ``route``."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
     plain = dataclasses.replace(cfg, use_pallas=False)
     tok = torch.tensor([prompt], dtype=torch.int32, device=device)
-    n_layers = cfg.n_layers
-    with torch.no_grad():
+    pos = torch.tensor(len(prompt), dtype=torch.int32, device=device)
+    n_layers = _attn_layers(cfg)
+    nxt = []
+
+    def run(c, where, kernels: bool):
         reset_counts()
-        lk, ck = T.prefill(params, cfg, tok, SERVE_MAX_LEN)
-        nxt = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        dk, _ = T.decode_step(params, cfg, nxt, ck, ck[0].pos)
-        del ck
-        _expect(counts(), "batch 1", flash=n_layers, decode=n_layers)
-        _expect_routes(routes(), "batch 1", **{route: n_layers})
-        lr, cr = T.prefill(params, plain, tok, SERVE_MAX_LEN)
-        dr, _ = T.decode_step(params, plain, nxt, cr, cr[0].pos)
-        del cr
-        _expect(counts(), "batch 1 plain", flash=n_layers, decode=n_layers)
-        _expect_routes(routes(), "batch 1 plain", **{route: n_layers})
-    cmp = {}
-    for tag, a, b in (("prefill", lk, lr), ("decode", dk, dr)):
-        diff = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        cmp[tag] = {"max_abs_diff": diff, "max_abs_logit": scale,
-                    "rel": diff / scale,
-                    "mean_abs_diff": float((a - b).abs().mean()),
-                    "argmax_equal": bool(torch.equal(a.argmax(-1),
-                                                     b.argmax(-1))),
-                    "finite": bool(torch.isfinite(a).all())}
-    return cmp
+        with torch.no_grad():
+            lg, caches = T.prefill(params, c, tok, max_len)
+            if not nxt:
+                nxt.append(lg[:, -1].argmax(-1, keepdim=True).to(
+                    torch.int32))
+            dg, _ = T.decode_step(params, c, nxt[0], caches, pos)
+        del caches
+        n = n_layers if kernels else 0
+        _expect(counts(), where, flash=n, decode=n)
+        _expect_routes(routes(), where, **{route: n})
+        return lg.float(), dg.float()
+
+    lk, dk = run(cfg, "batch 1", True)
+    lr, dr = run(plain, "batch 1 plain", False)
+    return {"prefill": _logit_diff(lk, lr), "decode": _logit_diff(dk, dr)}
 
 
 def _device_us(prof) -> tuple[dict, int]:
@@ -2716,10 +2774,12 @@ def _profile_prefill(cfg, params, prompts, device) -> dict:
     return rec
 
 
-def _eager_serve(cfg, params, prompts, device) -> tuple[list, list]:
-    """The serve cell's greedy tokens without the engine: each wave of
-    SERVE_SLOTS prompts left-padded into one ``transformer.prefill``,
-    then SERVE_NEW - 1 eager ``transformer.decode_step`` calls (what the
+def _eager_serve(cfg, params, prompts, device, slots: int = SERVE_SLOTS,
+                 max_len: int = SERVE_MAX_LEN,
+                 new: int = SERVE_NEW) -> tuple[list, list]:
+    """A serve cell's greedy tokens without the engine: each wave of
+    ``slots`` prompts left-padded into one ``transformer.prefill``, then
+    ``new`` - 1 eager ``transformer.decode_step`` calls (what the
     engine serves with EOS off).  Returns the tokens and each decode
     step's seconds (token upload to the step's end on the card, as
     ``_timed`` times the engine's)."""
@@ -2728,21 +2788,23 @@ def _eager_serve(cfg, params, prompts, device) -> tuple[list, list]:
     from repro_torch.models import transformer as T
     outs, secs = [], []
     with torch.no_grad():
-        for w in range(0, len(prompts), SERVE_SLOTS):
-            wave = prompts[w:w + SERVE_SLOTS]
+        for w in range(0, len(prompts), slots):
+            wave = prompts[w:w + slots]
             plen = max(len(p) for p in wave)
-            grid = np.zeros((SERVE_SLOTS, plen), np.int32)
+            grid = np.zeros((slots, plen), np.int32)
             for i, p in enumerate(wave):
                 grid[i, plen - len(p):] = p
             logits, caches = T.prefill(params, cfg, torch.from_numpy(grid)
-                                       .to(device), SERVE_MAX_LEN)
+                                       .to(device), max_len)
+            pos = torch.tensor(plen, dtype=torch.int32, device=device)
             cur = logits[:, -1].cpu().numpy().argmax(-1).astype(np.int32)
             toks = [cur]
-            for _ in range(SERVE_NEW - 1):
+            for _ in range(new - 1):
                 t0 = time.perf_counter()      # as the engine's _step is
                 tok = torch.from_numpy(cur[:, None].copy()).to(device)
                 logits, caches = T.decode_step(params, cfg, tok, caches,
-                                               caches[0].pos)
+                                               pos)
+                pos = pos + 1
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
                 cur = logits[:, 0].cpu().numpy().argmax(-1).astype(np.int32)
@@ -2907,7 +2969,8 @@ def phase_card_vs_cpu(device) -> dict:
     """The gemma2 smoke config serves the same prompts on the card and
     on the CPU (the same float32 weights, made on the CPU): equal tokens,
     with EOS live so slots are refilled; then the launcher's --smoke run
-    on the card."""
+    on the card.  The same for the four families' smoke configs
+    (``_card_vs_cpu_family``), and the launcher on the first."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve as launcher
@@ -2949,11 +3012,504 @@ def phase_card_vs_cpu(device) -> dict:
                    cuda_core=cfg.n_layers * len(calls["prefill"]))
     assert launcher_launches["flash_attention"] > 0 and \
         launcher_launches["decode_attention"] > 0, launcher_launches
+    rec["families"] = {arch: _card_vs_cpu_family(device, arch)
+                       for arch, _ in FAMILIES}
+    reset_counts()
+    launcher.main(["--arch", FAMILIES[0][0], "--smoke"])
+    rec["families_launcher"] = {"arch": FAMILIES[0][0],
+                                "launches": counts()}
+    emit({"phase": "card_vs_cpu_families", **rec["families"],
+          "launcher": rec["families_launcher"]})
+    assert rec["families_launcher"]["launches"]["decode_attention"] > 0
+    return rec
+
+
+#: card_vs_cpu's SSM chunk: the first wave's width, 32, is 4 chunks, so
+#: that joint prefill takes the chunked scan, a refill's width the whole
+#: one
+CVC_SSM_CHUNK = 8
+
+
+def _card_vs_cpu_family(device, arch: str) -> dict:
+    """``arch``'s smoke config (float32) serves 6 prompts on 3 slots on
+    the card and on the CPU, EOS live: equal tokens and stats, refills,
+    one capture, exact launches (CUDA-core route)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_smoke_config(arch), use_pallas=True)
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm_chunk=CVC_SSM_CHUNK)
+    host = init_params(T.param_defs(cfg), 0, device="cpu")
+    card = _to(host, device)
+    prompts = _prompts(cfg.vocab, 6, 18, 40, seed=2)
+    prompts[0] = (prompts[0] * 2)[:32]          # the first wave: 32 wide
+    prompts[1], prompts[2] = prompts[1][:32], prompts[2][:32]
+    probe = ServingEngine(cfg, host, ServeConfig(
+        batch_slots=3, max_len=128, eos_token=-1), device="cpu")
+    eos = probe.generate(prompts, max_new_tokens=3)[0][2]
+    sv = ServeConfig(batch_slots=3, max_len=128, eos_token=eos)
+    cpu_eng = ServingEngine(cfg, host, sv, device="cpu")
+    cpu_out = cpu_eng.generate(prompts, max_new_tokens=10)
+    eng = ServingEngine(cfg, card, sv, device=device)
+    calls = _timed(eng)
+    reset_counts()
+    card_out = eng.generate(prompts, max_new_tokens=10)
+    launches, by_route = counts(), routes()
+    n_attn = _attn_layers(cfg)
+    widths = [c[1] // 3 for c in calls["prefill"]]
+    rec = {"tokens_equal": card_out == cpu_out, "stats": eng.stats,
+           "cpu_stats": cpu_eng.stats, "launches": launches,
+           "routes": by_route, "captures": eng.captures,
+           "prefill_widths": widths, "moe_impl": cfg.moe_impl
+           if cfg.moe is not None else None}
+    assert rec["tokens_equal"], (arch, card_out, cpu_out)
+    assert eng.captures == 1, (arch, eng.captures)
+    assert eng.stats == cpu_eng.stats and eng.stats["refills"] >= 1, \
+        (arch, rec)
+    _expect(launches, arch, flash=n_attn * len(calls["prefill"]),
+            decode=n_attn * len(calls["decode"]))
+    _expect_routes(by_route, arch,
+                   cuda_core=n_attn * len(calls["prefill"]))
+    if cfg.ssm is not None:      # both scan branches ran
+        assert widths[0] == 32 and any(w % CVC_SSM_CHUNK for w in widths), \
+            (arch, widths)
     return rec
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the autotuning path (repro_torch.tune)
+# phase 17: serving the RG-LRU, SSM and MoE families
+# ---------------------------------------------------------------------------
+
+#: the families' serve cells (the repo's configs, bf16, random weights
+#: from seed 0): (arch, layers; None = the config's full depth).
+#: mixtral-8x22b (281 GB) runs at full width cut to 2 layers, as
+#: serve_f32 cuts gemma2
+FAMILIES = [("recurrentgemma-9b", None), ("falcon-mamba-7b", None),
+            ("deepseek-moe-16b", None), ("mixtral-8x22b", 2)]
+#: 4 requests of 1950-2048 random tokens on 2 slots, each wave's longest
+#: exactly 2048 (falcon-mamba's joint prefills: 4 chunks of its 512), 16
+#: new tokens each, EOS off, a cache of 2176
+FAM_REQUESTS, FAM_SLOTS, FAM_PROMPT = 4, 2, (1950, 2048)
+FAM_NEW, FAM_MAX_LEN = 16, 2176
+#: the attention shapes the families bring onto a served path, timed at
+#: their serve cells' sizes.  flash: (arch, (b, t, h, kv, d), window);
+#: decode: (arch, (b, s, h, kv, d), valid slots, flex beside SDPA): a
+#: full 2048-slot ring (recurrentgemma, g 16, d 256), the 2176-slot cache
+#: with 2063 valid (deepseek g 1, mixtral g 6, d 128).  No softcap; the
+#: scale 1/sqrt(d) (the configs' default)
+#: the MoE models' kernel-vs-plain gate (SERVE_LOGIT_RTOL) runs on their
+#: first 2 layers, mixtral-8x22b's serve cut: a bfloat16 difference in a
+#: router's input swaps a token's k-th expert, and with depth the swaps
+#: compound (deepseek-moe-16b's 28 layers: 123% apart, PERF.md), so the
+#: full depth is recorded, not gated
+FAM_MOE_GATE_LAYERS = 2
+FAM_FLASH = [("recurrentgemma-9b", (2, 2048, 16, 1, 256), 2048),
+             ("deepseek-moe-16b", (2, 2048, 16, 16, 128), None),
+             ("mixtral-8x22b", (2, 2048, 48, 8, 128), 4096)]
+FAM_DECODE = [("recurrentgemma-9b", (2, 2048, 16, 1, 256), 2048, True),
+              ("deepseek-moe-16b", (2, 2176, 16, 16, 128), 2063, True),
+              ("mixtral-8x22b", (2, 2176, 48, 8, 128), 2063, False)]
+
+
+#: ``_family_attention``'s gate beside ``_held``'s: each output row (one
+#: query position, one head) of a kernel within FAM_ROW_RTOL of the row's
+#: own largest |value| in its plain version run in float32 on the same
+#: values.  q and k are drawn at sd FAM_QK_SD (scores of sd 2.25 at the
+#: 1/sqrt(d) scale), so the softmax is peaked, not a mean over the keys
+FAM_ROW_RTOL = 2e-2
+FAM_QK_SD = 1.5
+
+
+def _row_rel(got, want) -> float:
+    """max over rows of max |got - want| / max |want| along the last
+    axis (inf where either is not finite)."""
+    import torch
+    d = (got.float() - want.float()).abs().amax(-1)
+    rel = d / want.float().abs().amax(-1)
+    return float(torch.nan_to_num(rel, nan=float("inf")).max())
+
+
+def _held_rows(got, want, where: str) -> float:
+    """``_row_rel(got, want)``; raises beyond FAM_ROW_RTOL, or unless the
+    gate fails ``got`` halved and zeros (it can tell a wrong kernel at
+    this shape)."""
+    import torch
+    err = _row_rel(got, want)
+    if not err <= FAM_ROW_RTOL:
+        raise AssertionError(f"{where}: kernel differs from its plain "
+                             f"version beyond {FAM_ROW_RTOL} of a row's "
+                             f"largest value: {err}")
+    for tag, bad in (("halved", got.float() * 0.5),
+                     ("zeroed", torch.zeros_like(got, dtype=torch.float32))):
+        if _row_rel(bad, want) <= FAM_ROW_RTOL:
+            raise AssertionError(f"{where}: the row gate passes a {tag} "
+                                 f"output")
+    return err
+
+
+def _family_prompts(vocab: int) -> list:
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lens = rng.randint(FAM_PROMPT[0], FAM_PROMPT[1] + 1, FAM_REQUESTS)
+    lens[::FAM_SLOTS] = FAM_PROMPT[1]
+    return [[int(x) for x in rng.randint(2, vocab, n)] for n in lens]
+
+
+def _family_attention(device) -> dict:
+    """Flash and decode at FAM_FLASH / FAM_DECODE: each held against its
+    plain version run in float32 on the same values (``_held``, 2e-2,
+    bf16, and row by row, ``_held_rows``), and timed beside its bound
+    (bytes once, operations at the bf16 peak), SDPA at the same function
+    and, for decode where flagged, ``flex_attention``; decode by
+    CUDA-graph replay."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    FA, DA = _kmod("flash_attention"), _kmod("decode_attention")
+    g = torch.Generator(device=device).manual_seed(11)
+    bf = torch.bfloat16
+    flash, decode = {}, {}
+    for arch, (b, t, h, kv, d), window in FAM_FLASH:
+        q = _randn(g, (b, t, h, d), bf, device, FAM_QK_SD)
+        k = _randn(g, (b, t, kv, d), bf, device, FAM_QK_SD)
+        v = _randn(g, (b, t, kv, d), bf, device)
+        kw = dict(window=window, scale=1.0 / math.sqrt(d))
+        got = _flash(q, k, v, **kw)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        err = _held(got, want, "bfloat16", f"flash {arch}")
+        row_err = _held_rows(got, want, f"flash {arch}")
+        del want
+        qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = _sdpa_call(qT, kT, vT, window=window, scale=kw["scale"])
+        lib_err = _held(got, lib().transpose(1, 2), "bfloat16",
+                        f"sdpa {arch}")
+        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 5)
+        fl = _flash_flops(q.shape, t, causal=True, window=window)
+        b_ms = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            / HBM_BYTES_PER_S * 1e3
+        o_ms = fl / BF16_FLOPS * 1e3
+        flash[arch] = {
+            "shape": [b, t, h, kv, d], "window": window,
+            "route": FA._route(bf, d), "ms": ms,
+            "plain_ms": _event_ms(
+                lambda: FA.flash_attention_plain(q, k, v, **kw), 1),
+            "library_ms": _event_ms(lib, 5), "library": "sdpa",
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bound_share": max(b_ms, o_ms) / ms, "flops": fl,
+            "tflops_per_s": fl / ms / 1e9, "max_abs_err": err,
+            "max_row_rel_err": row_err, "sdpa_max_abs_err": lib_err}
+        del q, k, v, qT, kT, vT, lib, got
+        torch.cuda.empty_cache()
+    for arch, (b, s, h, kv, d), n_valid, with_flex in FAM_DECODE:
+        q = _randn(g, (b, h, d), bf, device)
+        k, v = [_randn(g, (b, s, kv, d), bf, device) for _ in range(2)]
+        valid = (torch.arange(s, device=device) < n_valid).expand(b, s)
+        valid = valid.contiguous()
+        scale = 1.0 / math.sqrt(d)
+        kern = lambda: DA.decode_attention(q, k, v, valid,  # noqa: E731
+                                           scale=scale)
+        got = kern()
+        want = DA.decode_attention_plain(q.float(), k.float(), v.float(),
+                                         valid, scale=scale)
+        err = _held(got, want, "bfloat16", f"decode {arch}")
+        row_err = _held_rows(got, want, f"decode {arch}")
+        del want
+        assert torch.equal(got, kern()), ("decode_attention rerun", arch)
+        ms, eager_ms = _time_ms(kern, 50)
+        nbytes = 2 * (2 * b * n_valid * kv * d + 2 * q.numel()) \
+            + valid.numel()
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = 4.0 * b * h * n_valid * d / BF16_FLOPS * 1e3
+        qT = q[:, :, None]
+        kT, vT = (x.transpose(1, 2).contiguous() for x in (k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qT, kT, vT, attn_mask=valid[:, None, None, :], scale=scale,
+            enable_gqa=True)
+        sdpa_err = _held(got, sdpa()[:, :, 0], "bfloat16", f"sdpa {arch}")
+        sdpa_ms, how = _graph_or_events(sdpa)
+        rec = {"shape": [b, s, h, kv, d], "group": h // kv,
+               "valid": n_valid, "ms": ms, "timed_by": "cuda graph replay",
+               "eager_ms": eager_ms,
+               "plain_ms": _event_ms(lambda: DA.decode_attention_plain(
+                   q, k, v, valid, scale=scale), 5),
+               "sdpa_ms": sdpa_ms, "sdpa_timed_by": how,
+               "bound_ms": max(b_ms, o_ms),
+               "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "bound_share": max(b_ms, o_ms) / ms,
+               "plan": DA.decode_plan(b, s, h, kv, d, bf)._asdict(),
+               "max_abs_err": err, "max_row_rel_err": row_err,
+               "sdpa_max_abs_err": sdpa_err,
+               "library_ms": sdpa_ms, "library": "sdpa"}
+        if with_flex:
+            lib = _flex_call(qT, kT, vT, window=None, valid=valid,
+                             scale=scale, cap=0.0)
+            rec["flex_max_abs_err"] = _held(got, lib()[:, :, 0],
+                                            "bfloat16", f"flex {arch}")
+            rec["flex_ms"], rec["flex_timed_by"] = _graph_or_events(lib)
+            rec["library_ms"], rec["library"] = rec["flex_ms"], "flex"
+            del lib
+        rec["kernel_faster"] = ms <= rec["library_ms"]
+        decode[arch] = rec
+        del q, k, v, qT, kT, vT, sdpa, got
+        torch.cuda.empty_cache()
+    return {"flash": flash, "decode": decode}
+
+
+class _Spans:
+    """CUDA events around every call of some module functions, for an
+    eager run: the device ms between each call's start and end, summed
+    by name (the stream's time, so a call the host cannot keep fed
+    counts its gaps too).  ``targets``: name -> (module, attribute)."""
+
+    def __init__(self, targets: dict):
+        self.targets, self.events = targets, {n: [] for n in targets}
+
+    def __enter__(self):
+        import torch
+        self.saved = {}
+        for name, (mod, attr) in self.targets.items():
+            fn = getattr(mod, attr)
+            self.saved[name] = fn
+
+            def timed(*a, _fn=fn, _ev=self.events[name], **kw):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = _fn(*a, **kw)
+                e.record()
+                _ev.append((s, e))
+                return out
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[name])
+
+    def ms(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        return {n: {"calls": len(ev),
+                    "ms": sum(a.elapsed_time(b) for a, b in ev)}
+                for n, ev in self.events.items()}
+
+
+def _kernel_groups(per: dict) -> dict:
+    """Device us of a trace by kind of kernel: the port's attention
+    kernels, matrix products (cuBLAS / CUTLASS), the rest."""
+    out = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
+           "other": 0.0}
+    for name, us in per.items():
+        low = name.lower()
+        if "flash" in low:
+            out["flash_attention"] += us
+        elif "decode_" in low:
+            out["decode_attention"] += us
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet",
+                                    "sm90_")):
+            out["gemm"] += us
+        else:
+            out["other"] += us
+    return out
+
+
+def _family_breakdown(eng, cfg, grid) -> dict:
+    """Where a prefill call and a decode step of ``eng`` spend their
+    time: one prefill call of ``grid`` with CUDA events around each
+    block mixer, flash call and associative scan (``_Spans``); another
+    under torch.profiler, and one eager decode step from the engine's
+    caches (device busy ms, idle share, ms by kind of kernel, the
+    heaviest kernels)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, rglru, ssm
+    mixer = {"rec": (rglru, "apply_rglru"), "ssm": (ssm, "apply_ssm"),
+             "moe_attn": (moe, "apply_moe"), "moe_local": (moe, "apply_moe")}
+    targets = {"flash": (ops, "attention")}
+    for kind in set(cfg.block_pattern):
+        if kind in mixer:
+            targets[mixer[kind][1]] = mixer[kind]
+        if kind in ("rec", "ssm"):
+            mod = rglru if kind == "rec" else ssm
+            targets[f"associative_scan ({kind})"] = (mod, "associative_scan")
+    def traced(fn):
+        # device activity only: a falcon-mamba prefill is ~31,000
+        # kernels, and host events would double what the trace holds
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per, n_ops = _device_us(prof)
+        busy = sum(per.values()) / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / (wall * 1e3),
+                "device_ops": n_ops,
+                "ms_by_kind": {k: v / 1e3 for k, v in
+                               _kernel_groups(per).items()},
+                "top_device_us": [[k[:80], v] for k, v in top]}
+
+    def steps(n=1):
+        for _ in range(n):
+            eng._token.copy_(torch.from_numpy(
+                np.full((grid.shape[0], 1), 7, np.int32)))
+            with torch.no_grad():
+                eng._decode()
+
+    t0 = time.perf_counter()
+    with _Spans(targets) as spans:
+        eng._prefill(grid)
+    rec = {"grid": list(grid.shape), "prefill_spans": spans.ms(),
+           "spans_wall_ms": (time.perf_counter() - t0) * 1e3,
+           "prefill_profile": traced(lambda: eng._prefill(grid)),
+           "eager_decode_step_profile": traced(steps)}
+    return rec
+
+
+def _serve_family(device, arch: str, n_layers) -> dict:
+    """One family's serve cell through ``ServingEngine`` (its decode
+    step captured once), then the same tokens from an eager loop, the
+    breakdown, and (with attention) the kernel path against the plain
+    path at batch 1.  Frees the model before it returns."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    over = {"use_pallas": True}
+    if n_layers:
+        over["n_layers"] = n_layers
+    cfg = dataclasses.replace(get_config(arch), **over)
+    n_attn = _attn_layers(cfg)
+    route = _kmod("flash_attention")._route(torch.bfloat16, cfg.head_dim)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(T.param_defs(cfg), 0, torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, params, ServeConfig(
+        batch_slots=FAM_SLOTS, max_len=FAM_MAX_LEN, eos_token=-1),
+        device=device)
+    prompts = _family_prompts(cfg.vocab)
+    calls = _timed(eng)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_start = t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=FAM_NEW)
+    wall = time.perf_counter() - t0
+    launches, by_route = counts(), routes()
+    peak = torch.cuda.max_memory_allocated()
+    n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
+    prefill_s = sum(c[0] for c in calls["prefill"])
+    decode_s = sum(c[0] for c in calls["decode"])
+    prompt_tokens = sum(len(p) for p in prompts)
+    rec = {"model": cfg.name, "layers": cfg.n_layers,
+           "kinds": sorted(set(T.layer_kinds(cfg))),
+           "attention_layers": n_attn, "params": T.n_params(params),
+           "param_bytes": 2 * T.n_params(params), "dtype": "bfloat16",
+           "init_s": init_s, "prompt_lengths": [len(p) for p in prompts],
+           "stats": eng.stats, "wall_s": wall,
+           "ttft_s": calls["prefill"][0][2] - t0,
+           "prefill_s": [c[0] for c in calls["prefill"]],
+           "prefill_tokens_per_s": prompt_tokens / prefill_s,
+           "prefill_grid_tokens_per_s":
+               sum(c[1] for c in calls["prefill"]) / prefill_s,
+           "decode_step_ms": decode_s / n_decode * 1e3,
+           "first_decode_step_ms": calls["decode"][0][0] * 1e3,
+           "replayed_decode_step_ms": (decode_s - calls["decode"][0][0])
+           / (n_decode - 1) * 1e3,
+           "decode_tokens_per_s": FAM_SLOTS * n_decode / decode_s,
+           "max_memory_allocated": peak, "captures": eng.captures,
+           "launches": launches, "routes": by_route,
+           "flash_route": route if n_attn else None}
+    assert eng.stats == {"prefills": 2, "refills": 0, "decode_steps": 30}, \
+        (arch, eng.stats)
+    assert all(len(o) == FAM_NEW for o in outs), arch
+    assert eng.captures == 1, (arch, eng.captures)
+    _expect(launches, arch, flash=n_attn * n_prefill,
+            decode=n_attn * n_decode)
+    _expect_routes(by_route, arch, **({route: n_attn * n_prefill}
+                                      if n_attn else {}))
+    # the same tokens through an eager decode_step loop
+    eager_outs, secs = _eager_serve(cfg, params, prompts, device,
+                                    slots=FAM_SLOTS, max_len=FAM_MAX_LEN,
+                                    new=FAM_NEW)
+    rec["eager"] = {"decode_step_ms": sum(secs) / len(secs) * 1e3,
+                    "decode_tokens_per_s": FAM_SLOTS * len(secs)
+                    / sum(secs),
+                    "tokens_equal_captured": eager_outs == outs}
+    assert eager_outs == outs, f"{arch}: captured tokens differ from eager"
+    steps_s = {"init": init_s, "generate": wall,
+               "eager": time.perf_counter() - t_start - wall}
+    grid = np.asarray([[0] * (FAM_PROMPT[1] - len(p)) + p
+                       for p in prompts[:FAM_SLOTS]], np.int32)
+    t0 = time.perf_counter()
+    rec["breakdown"] = _family_breakdown(eng, cfg, grid)
+    steps_s["breakdown"] = time.perf_counter() - t0
+    del eng, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if n_attn:
+        gate_cfg, gate_params = cfg, params
+        if cfg.moe is not None and cfg.n_layers > FAM_MOE_GATE_LAYERS:
+            # top-k routing diverges with depth: the full depth is a
+            # record, the gate runs on the model's first layers
+            rec["kernel_vs_plain_batch1_full_depth"] = _kernel_vs_plain(
+                params, cfg, prompts[0], device, route, max_len=FAM_MAX_LEN)
+            gate_cfg = dataclasses.replace(cfg, n_layers=FAM_MOE_GATE_LAYERS)
+            gate_params = {**params,
+                           "layers": params["layers"][:FAM_MOE_GATE_LAYERS]}
+        rec["kernel_vs_plain_batch1"] = {
+            "layers": gate_cfg.n_layers, **_kernel_vs_plain(
+                gate_params, gate_cfg, prompts[0], device, route,
+                max_len=FAM_MAX_LEN)}
+    steps_s["kernel_vs_plain"] = time.perf_counter() - t0
+    rec["phase_seconds"] = steps_s
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_family", **rec})
+    cmp = rec.get("kernel_vs_plain_batch1", {})
+    for tag in ("prefill", "decode"):
+        if tag in cmp:
+            c = cmp[tag]
+            assert c["finite"] and c["rel"] <= SERVE_LOGIT_RTOL, \
+                (arch, tag, c)
+    return rec
+
+
+def phase_serve_families(device) -> dict:
+    """The attention shapes the families bring (``_family_attention``),
+    then each family's serve cell in FAMILIES order, each model freed
+    before the next is built (gemma2's ~67 GB were freed at the end of
+    phase_serve)."""
+    t0 = time.perf_counter()
+    rec = {"phase": "serve_families", "attention": _family_attention(device),
+           "logit_rtol": SERVE_LOGIT_RTOL, "models": {}}
+    emit({"phase": "serve_families_attention", **rec["attention"]})
+    for arch, n_layers in FAMILIES:
+        rec["models"][arch] = _serve_family(device, arch, n_layers)
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "serve_families", "seconds": rec["seconds"],
+          "logit_rtol": SERVE_LOGIT_RTOL})
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the autotuning path (repro_torch.tune)
 # ---------------------------------------------------------------------------
 
 #: the tuning problem of benchmarks/tune_bench.py: paper-default DCQCN on
@@ -3450,7 +4006,7 @@ def _paths_launches(rows: list, paths: dict) -> None:
 
 
 def _phases(device, pacer_cpu: dict) -> list:
-    """Phases 3-17; returns the kernels line's rows.  The pacer's CPU
+    """Phases 3-18; returns the kernels line's rows.  The pacer's CPU
     schedules (``pacer_cpu``, a process each) run beside the what-if and
     fleet phases, after the phases that time eager host work."""
     kern = phase_kernels(device)
@@ -3486,6 +4042,15 @@ def _phases(device, pacer_cpu: dict) -> list:
     f32 = phase_serve_f32(device)
     attn["flash_attention_cuda_core"]["launches"] = \
         f32["routes"]["kernels"]["cuda_core"]
+    fam = phase_serve_families(device)     # after gemma2's 67 GB are freed
+    for arch, m in fam["models"].items():
+        _paths_launches(
+            [attn["flash_attention"], attn["flash_attention_cuda_core"],
+             attn["decode_attention"]],
+            {f"serve_{arch}": {
+                "flash_attention": m["routes"]["tensor_core"],
+                "flash_attention_cuda_core": m["routes"]["cuda_core"],
+                "decode_attention": m["launches"]["decode_attention"]}})
     phase_card_vs_cpu(device)
     tune = phase_tune(device)
     for name in ("gen_np_step", "rp_step", "segment_reduce"):

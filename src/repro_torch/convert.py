@@ -17,8 +17,9 @@ the card, as everywhere in the port; pass ``device="cpu"`` for the CPU.
   * ``params_from_numpy``     -> the transformer's param tree (the
     reference's stacked ``groups/p{j}`` leaves unstacked into the port's
     flat ``layers`` list)
-  * ``caches_from_numpy`` / ``caches_to_numpy`` -> the per-layer KV
-    caches and back to the reference's nesting
+  * ``caches_from_numpy`` / ``caches_to_numpy`` -> the per-layer caches
+    (``KVCache``, ``SSMState``, ``RGLRUState``) and back to the
+    reference's nesting
 """
 
 from __future__ import annotations
@@ -157,54 +158,61 @@ def params_from_numpy(cfg, tree, device=None) -> dict:
             "logits": _tree(tree.get("logits", {}), conv)}
 
 
-def _get_kv(c):
-    return (_get(c, "k"), _get(c, "v"), _get(c, "pos"))
+def _cache_types(cfg) -> list:
+    """Each layer's cache type, in the port's layer order."""
+    from .models.attention import KVCache
+    from .models.rglru import RGLRUState
+    from .models.ssm import SSMState
+    from .models.transformer import layer_kinds
+    by_kind = {"ssm": SSMState, "rec": RGLRUState}
+    return [by_kind.get(k, KVCache) for k in layer_kinds(cfg)]
 
 
 def caches_from_numpy(cfg, tree, device=None) -> list:
     """The reference's caches (``{"head": [...], "groups": {"p{j}":
-    stacked}, "tail": [...]}`` of ``KVCache``s with numpy leaves) as the
-    port's per-layer list; every layer's ``pos`` must agree."""
-    from .models.attention import KVCache
+    stacked}, "tail": [...]}`` of ``KVCache`` / ``SSMState`` /
+    ``RGLRUState`` with numpy leaves) as the port's per-layer list; a
+    ``KVCache``'s ``pos`` becomes a [] int32 tensor."""
     device = resolve_device(device)
 
-    def take(c, i):
-        k, v, pos = _get_kv(c)
-        return (np.asarray(k)[i], np.asarray(v)[i],
-                np.asarray(pos).reshape(-1)[i])
+    def fields(c):
+        names = c.keys() if isinstance(c, dict) else c._fields
+        return {f: np.asarray(_get(c, f)) for f in names}
 
-    layers = _flat_layers(cfg, [_get_kv(c) for c in tree.get("head", [])],
-                          tree.get("groups", {}),
-                          [_get_kv(c) for c in tree.get("tail", [])], take)
-    return [KVCache(k=_leaf(k, device), v=_leaf(v, device),
-                    pos=_leaf(np.asarray(pos, np.int32), device))
-            for k, v, pos in layers]
+    layers = _flat_layers(
+        cfg, [fields(c) for c in tree.get("head", [])],
+        tree.get("groups", {}), [fields(c) for c in tree.get("tail", [])],
+        lambda c, i: {f: a.reshape(-1)[i] if f == "pos" else a[i]
+                      for f, a in fields(c).items()})
+    out = []
+    for cls, c in zip(_cache_types(cfg), layers):
+        leaves = {f: _leaf(np.asarray(c[f], np.int32) if f == "pos"
+                           else c[f], device) for f in cls._fields}
+        out.append(cls(**leaves))
+    return out
 
 
 def caches_to_numpy(cfg, caches) -> dict:
     """The port's per-layer caches in the reference's nesting, numpy
-    leaves (``pos`` int32; stacked groups stack k, v and pos)."""
-    from .models.attention import KVCache
+    leaves (float32 state, ``pos`` int32); a stacked group stacks every
+    leaf along a leading layers axis."""
     from .models.transformer import layer_plan
     head, pat, n_groups, tail = layer_plan(cfg)
 
     def one(c):
-        f = lambda x: x.detach().float().cpu().numpy()  # noqa: E731
-        return KVCache(k=f(c.k), v=f(c.v),
-                       pos=np.asarray(c.pos.cpu().numpy(), np.int32))
+        return type(c)(**{
+            f: (np.asarray(x.cpu().numpy(), np.int32) if f == "pos"
+                else x.detach().float().cpu().numpy())
+            for f, x in zip(c._fields, c)})
 
     flat = [one(c) for c in caches]
     out = {"head": flat[:len(head)]}
     body = flat[len(head):len(head) + n_groups * len(pat)]
     if n_groups:
-        out["groups"] = {
-            f"p{j}": KVCache(
-                k=np.stack([body[i * len(pat) + j].k
-                            for i in range(n_groups)]),
-                v=np.stack([body[i * len(pat) + j].v
-                            for i in range(n_groups)]),
-                pos=np.asarray([body[i * len(pat) + j].pos
-                                for i in range(n_groups)], np.int32))
-            for j in range(len(pat))}
+        out["groups"] = {}
+        for j in range(len(pat)):
+            group = body[j::len(pat)]
+            out["groups"][f"p{j}"] = type(group[0])(*(
+                np.stack(leaves) for leaves in zip(*group)))
     out["tail"] = flat[len(head) + n_groups * len(pat):]
     return out

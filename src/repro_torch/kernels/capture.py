@@ -24,6 +24,7 @@ threads runs one section at a time, while their host work overlaps.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import threading
 import time
@@ -78,12 +79,21 @@ class CapturedGraph:
         # allocate them again
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            graph.capture_begin()
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
+        # the cyclic collector stays off while the capture lasts: a
+        # finalizer it runs inside a global-mode capture (a dropped
+        # engine's graph reset) invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream().wait_stream(stream)
         self.capture_s = time.perf_counter() - t0
         self.launches = []

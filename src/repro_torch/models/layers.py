@@ -86,6 +86,15 @@ def init_params(defs, seed: int, dtype=torch.float32, device=None):
     return build(defs)
 
 
+def param_shapes(defs):
+    """The def tree with each ``ParamDef`` replaced by its shape tuple."""
+    if is_def(defs):
+        return tuple(defs.shape)
+    if isinstance(defs, dict):
+        return {k: param_shapes(v) for k, v in defs.items()}
+    return [param_shapes(x) for x in defs]
+
+
 # ---------------------------------------------------------------------------
 # normalisation
 # ---------------------------------------------------------------------------

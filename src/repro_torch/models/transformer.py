@@ -1,5 +1,6 @@
-"""Decoder-only LM trunk (port of ``repro.models.transformer``, for the
-block kinds ``attn`` and ``local``).
+"""Decoder-only LM trunk (port of ``repro.models.transformer``, for every
+decoder-only block kind: ``attn``, ``local``, ``rec`` (RG-LRU), ``ssm``
+(Mamba), ``moe_attn``, ``moe_local`` and the ``dense_attn`` head).
 
 The reference stacks each period of ``cfg.block_pattern`` behind a
 leading ``layers`` axis and scans over it; the port keeps the layers as
@@ -9,14 +10,20 @@ in turn, then tail), and runs them in a Python loop.
 
 Entry points:
   * param_defs(cfg)                          — ParamDef tree
-  * forward(params, cfg, tokens)             — logits
+  * forward(params, cfg, tokens)             — (logits, MoE aux loss),
+    as the reference's
   * prefill(params, cfg, tokens, max_len)    — last logits + caches
   * decode_step(params, cfg, token, caches, pos) — one-token serve step
     (``pos`` a [] int32 tensor, as in the reference)
   * init_caches(cfg, batch, max_len, dtype, device)
 
-The other block kinds (``moe_*``, ``dense_attn``, ``ssm``, ``rec``) and
-the encoder-decoder / VLM configs raise ``NotImplementedError``.
+A layer's cache is a ``KVCache`` (attention kinds), an ``SSMState``
+(``ssm``) or an ``RGLRUState`` (``rec``), batch on axis 0 of every
+tensor but ``KVCache.pos``.  Given caches are written in place: the K/V
+rows by the attention, a recurrent layer's new state copied into the
+caller's state tensors, so a captured decode step reads and writes the
+same storage at every replay.  The encoder-decoder and VLM configs
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,15 +33,19 @@ from typing import Any, Optional
 import torch
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
                      embed_lookup, logits_defs, mlp_defs, norm_defs)
 
 #: the block kinds this port runs
-PORTED_KINDS = ("attn", "local")
+ATTN_KINDS = ("attn", "local", "moe_attn", "moe_local", "dense_attn")
+PORTED_KINDS = ATTN_KINDS + ("rec", "ssm")
 
-_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 1 (the MoE, SSM, "
-             "RG-LRU, encoder-decoder and VLM models)")
+_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 1b (the "
+             "encoder-decoder and VLM models)")
 
 
 def layer_plan(cfg: ModelConfig):
@@ -68,16 +79,28 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: VLM models are " + _UNPORTED)
     for kind in sorted(set(layer_kinds(cfg))):
         if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is " + _UNPORTED)
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
 
 
 def _block_defs(cfg: ModelConfig, kind: str) -> dict:
     nk, d = cfg.norm_kind, cfg.d_model
-    defs: dict[str, Any] = {"norm1": norm_defs(nk, d),
-                            "attn": attn_mod.attn_defs(cfg),
-                            "norm2": norm_defs(nk, d),
-                            "mlp": mlp_defs(d, cfg.d_ff, cfg.mlp_kind)}
+    if kind == "ssm":
+        defs: dict[str, Any] = {"norm": norm_defs(nk, d),
+                                "ssm": ssm_mod.ssm_defs(cfg)}
+        if cfg.post_block_norm:
+            defs["post1"] = norm_defs(nk, d)
+        return defs
+    defs = {"norm1": norm_defs(nk, d), "norm2": norm_defs(nk, d)}
+    if kind == "rec":
+        defs["rglru"] = rglru_mod.rglru_defs(cfg)
+    else:
+        defs["attn"] = attn_mod.attn_defs(cfg)
+    if kind in ("moe_attn", "moe_local"):
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    elif kind == "dense_attn":
+        defs["mlp"] = mlp_defs(d, cfg.moe.d_ff_dense, cfg.mlp_kind)
+    else:
+        defs["mlp"] = mlp_defs(d, cfg.d_ff, cfg.mlp_kind)
     if cfg.post_block_norm:
         defs["post1"] = norm_defs(nk, d)
         defs["post2"] = norm_defs(nk, d)
@@ -93,41 +116,79 @@ def param_defs(cfg: ModelConfig) -> dict:
                                   cfg.tie_embeddings)}
 
 
+def _blk_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+               dtype, device):
+    if kind == "ssm":
+        return ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+    if kind == "rec":
+        return rglru_mod.init_rglru_state(cfg, batch, dtype, device)
+    return attn_mod.init_cache(cfg, batch, max_len, kind, dtype, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> list:
-    """One ``KVCache`` per layer, batch on axis 0."""
+    """One cache per layer (``KVCache``, ``SSMState`` or
+    ``RGLRUState``), batch on axis 0."""
     check_ported(cfg)
-    return [attn_mod.init_cache(cfg, batch, max_len, k, dtype, device)
+    return [_blk_cache(cfg, k, batch, max_len, dtype, device)
             for k in layer_kinds(cfg)]
 
 
+def _keep_state(cache, new):
+    """Write a recurrent layer's new state into the caller's tensors."""
+    if cache is None:
+        return None
+    for old, val in zip(cache, new):
+        old.copy_(val)
+    return cache
+
+
 def _apply_block(bp: dict, cfg: ModelConfig, kind: str, x, positions,
-                 cache):
+                 cache, aux):
     nk, eps = cfg.norm_kind, cfg.norm_eps
+    if kind == "ssm":
+        h, new = ssm_mod.apply_ssm(bp["ssm"], cfg,
+                                   apply_norm(bp["norm"], x, nk, eps), cache)
+        if cfg.post_block_norm:
+            h = apply_norm(bp["post1"], h, nk, eps)
+        return x + h, _keep_state(cache, new), aux
+
     h = apply_norm(bp["norm1"], x, nk, eps)
-    h, cache = attn_mod.attention(bp["attn"], cfg, kind, h, positions, cache)
+    if kind == "rec":
+        h, new = rglru_mod.apply_rglru(bp["rglru"], cfg, h, cache)
+        cache = _keep_state(cache, new)
+    else:
+        h, cache = attn_mod.attention(bp["attn"], cfg, kind, h, positions,
+                                      cache)
     if cfg.post_block_norm:
         h = apply_norm(bp["post1"], h, nk, eps)
     x = x + h
-    h = apply_mlp(bp["mlp"], apply_norm(bp["norm2"], x, nk, eps),
-                  cfg.mlp_kind)
+    h = apply_norm(bp["norm2"], x, nk, eps)
+    if kind in ("moe_attn", "moe_local"):
+        h, a = moe_mod.apply_moe(bp["moe"], cfg, h)
+        aux = aux + a
+    else:
+        h = apply_mlp(bp["mlp"], h, cfg.mlp_kind)
     if cfg.post_block_norm:
         h = apply_norm(bp["post2"], h, nk, eps)
-    return x + h, cache
+    return x + h, cache, aux
 
 
 def _trunk(params, cfg: ModelConfig, x, positions, caches):
-    """Shared by forward/prefill/decode. caches=None for no cache."""
+    """Shared by forward/prefill/decode. caches=None for no cache.
+    Returns (x, caches, MoE aux loss)."""
     check_ported(cfg)
     kinds = layer_kinds(cfg)
+    aux = torch.zeros((), device=x.device)
     new_caches = None if caches is None else []
     for i, kind in enumerate(kinds):
-        x, c = _apply_block(params["layers"][i], cfg, kind, x, positions,
-                            None if caches is None else caches[i])
+        x, c, aux = _apply_block(params["layers"][i], cfg, kind, x,
+                                 positions,
+                                 None if caches is None else caches[i], aux)
         if caches is not None:
             new_caches.append(c)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
@@ -136,12 +197,14 @@ def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens [b, t] -> logits [b, t, vocab] float32 (no cache)."""
+    """tokens [b, t] -> (logits [b, t, vocab] float32, the MoE layers'
+    summed aux loss, a [] float32 tensor), as the reference's (no
+    cache)."""
     x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     b, t = x.shape[:2]
-    x, _ = _trunk(params, cfg, x, _positions(b, t, 0, x.device), None)
+    x, _, aux = _trunk(params, cfg, x, _positions(b, t, 0, x.device), None)
     return apply_logits(params["logits"], params["embed"], x,
-                        cfg.tie_embeddings, cfg.softcap_final)
+                        cfg.tie_embeddings, cfg.softcap_final), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
@@ -150,18 +213,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
 
     ``caches`` (``init_caches(cfg, b, max_len, ...)``'s shapes) are
     zeroed and written in place instead of allocating a new set; the
-    returned caches share their ``k``/``v`` storage."""
+    returned caches share their storage (a ``KVCache`` its ``k``/``v``, a
+    recurrent state all of its tensors)."""
     x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     b, t = x.shape[:2]
     if caches is None:
         caches = init_caches(cfg, b, max_len, x.dtype, x.device)
     else:
         for c in caches:
-            c.k.zero_()
-            c.v.zero_()
-            c.pos.zero_()
-    x, caches = _trunk(params, cfg, x, _positions(b, t, 0, x.device),
-                       caches)
+            for leaf in c:
+                leaf.zero_()
+    x, caches, _ = _trunk(params, cfg, x, _positions(b, t, 0, x.device),
+                          caches)
     logits = apply_logits(params["logits"], params["embed"], x[:, -1:],
                           cfg.tie_embeddings, cfg.softcap_final)
     return logits, caches
@@ -170,13 +233,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
                 pos: torch.Tensor):
     """One serve step: token [b, 1], pos [] int32 (on the token's
-    device) -> (logits [b, 1, vocab], caches).  The caches' ``k``/``v``
-    are updated in place; each returned cache carries ``pos + 1``.  No
-    host read, so the step can be captured as a CUDA graph."""
+    device) -> (logits [b, 1, vocab], caches).  The caches are updated
+    in place (K/V rows, recurrent states); each returned ``KVCache``
+    carries ``pos + 1``.  No host read, so the step can be captured as a
+    CUDA graph."""
     x = embed_lookup(params["embed"], token, cfg.embed_scale, cfg.d_model)
     b = x.shape[0]
     positions = pos.to(torch.int32).expand(b, 1)
-    x, caches = _trunk(params, cfg, x, positions, caches)
+    x, caches, _ = _trunk(params, cfg, x, positions, caches)
     logits = apply_logits(params["logits"], params["embed"], x,
                           cfg.tie_embeddings, cfg.softcap_final)
     return logits, caches
@@ -191,6 +255,6 @@ def n_params(params) -> int:
     return sum(n_params(v) for v in params)
 
 
-__all__ = ["PORTED_KINDS", "check_ported", "decode_step", "forward",
-           "init_caches", "layer_kinds", "layer_plan", "n_params",
+__all__ = ["ATTN_KINDS", "PORTED_KINDS", "check_ported", "decode_step",
+           "forward", "init_caches", "layer_kinds", "layer_plan", "n_params",
            "param_defs", "prefill"]

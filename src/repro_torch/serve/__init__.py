@@ -4,6 +4,7 @@
   * whatif: the what-if CC query service (``repro_torch.serve.whatif``)
 """
 
-from .engine import ServeConfig, ServingEngine
+from .engine import ServeConfig, ServingEngine, make_serve_step
+from . import whatif
 
-__all__ = ["ServeConfig", "ServingEngine"]
+__all__ = ["ServeConfig", "ServingEngine", "make_serve_step", "whatif"]

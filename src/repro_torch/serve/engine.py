@@ -12,10 +12,12 @@ reference's.
 
 Where the reference jits its step once, the engine captures its decode
 step once as a CUDA graph (on the card): the caches are the engine's own
-per-layer ``KVCache`` tensors (batch on axis 0), allocated by its first
-joint prefill and rewritten in place by every later one, so the graph
-always reads the same storage; its inputs are the token tensor and the
-device position ``pos``.  Prefill is not captured.
+per-layer tensors (a ``KVCache``, ``SSMState`` or ``RGLRUState`` a
+layer, batch on axis 0 of every tensor but ``KVCache.pos``), allocated
+by its first joint prefill and rewritten in place by every later one
+and by every decode step, so the graph always reads the same storage;
+its inputs are the token tensor and the device position ``pos``, the
+one position counter of every ``KVCache``.  Prefill is not captured.
 """
 
 from __future__ import annotations
@@ -110,18 +112,19 @@ class ServingEngine:
 
     def _joint_prefill(self, grid: np.ndarray):
         """Restart the grid: prefill into the engine's caches (the first
-        one allocates them) and set the device position."""
+        one allocates them, every ``KVCache`` counting on ``_pos``) and
+        set the device position."""
         logits, fresh = self._prefill(grid, self._caches)
         if self._caches is None:
-            self._caches = [KVCache(k=c.k, v=c.v, pos=self._pos)
-                            for c in fresh]
-        self._pos.copy_(fresh[0].pos)
+            self._caches = [c._replace(pos=self._pos)
+                            if isinstance(c, KVCache) else c for c in fresh]
+        self._pos.fill_(grid.shape[1])
         return logits
 
     def _decode(self):
-        logits, new = self._serve_step(self.params, self._token,
-                                       self._caches, self._pos)
-        self._pos.copy_(new[0].pos)
+        logits, _ = self._serve_step(self.params, self._token,
+                                     self._caches, self._pos)
+        self._pos.add_(1)
         return logits
 
     @torch.no_grad()
@@ -225,12 +228,14 @@ class ServingEngine:
 
     def _scatter_rows(self, live, fresh, slots: list[int]) -> None:
         """Copy ``slots``' rows of every layer's cache from ``fresh`` into
-        ``live`` (in place; batch is axis 0 of every cache tensor).  The
-        position counter stays live's."""
+        ``live`` (in place; batch is axis 0 of every cache tensor: K/V
+        rows and recurrent states alike).  The position counter stays
+        live's."""
         rows = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
         for lc, fc in zip(live, fresh):
-            lc.k[rows] = fc.k[rows]
-            lc.v[rows] = fc.v[rows]
+            for name, lt, ft in zip(lc._fields, lc, fc):
+                if name != "pos":
+                    lt[rows] = ft[rows]
 
     def _generate_waves(self, prompts: list[list[int]],
                         max_new_tokens: int = 32) -> list[list[int]]:

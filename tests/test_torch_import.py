@@ -33,13 +33,33 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.tune, repro_torch.tune.soft, "
             "repro_torch.tune.objectives, repro_torch.tune.optimizers, "
             "repro_torch.tune.pareto, repro_torch.ckpt, "
-            "repro_torch.ckpt.checkpoint, repro_torch.core.serialize; "
+            "repro_torch.ckpt.checkpoint, repro_torch.core.serialize, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.rglru, repro_torch.models.scan; "
+            "from repro_torch.serve import make_serve_step, whatif; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); assert not bad")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("pkg", ["serve", "models"])
+def test_package_names_match_reference(pkg):
+    """``repro_torch.<pkg>`` binds the reference's names; ``models``
+    binds all of them but the reference's ``encdec``, ``vlm`` and mesh
+    helpers (ROADMAP Queue 1)."""
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    unported = {"models": {"encdec", "vlm", "abstract_params",
+                           "param_specs"}}.get(pkg, set())
+    assert set(port.__all__) == set(ref.__all__) - unported
+    if pkg == "serve":
+        assert port.__all__ == ref.__all__
+    for name in port.__all__:
+        assert hasattr(port, name), name
 
 
 def test_serving_needs_a_gpu_or_the_cpu_by_request(monkeypatch):

@@ -29,6 +29,7 @@ from repro_torch import convert                             # noqa: E402
 from repro_torch.configs import get_smoke_config            # noqa: E402
 from repro_torch.launch import serve as launch_serve        # noqa: E402
 from repro_torch.models import ModelConfig                  # noqa: E402
+from repro_torch.models.attention import KVCache            # noqa: E402
 from repro_torch.models import transformer as T_P           # noqa: E402
 from repro_torch.models.layers import init_params           # noqa: E402
 from repro_torch.serve import ServeConfig, ServingEngine    # noqa: E402
@@ -119,8 +120,11 @@ def test_serving_engine_refills_on_eos():
     assert outs[2] == solo[0][:len(outs[2])]
 
 
-def test_launcher_runs_on_cpu_by_request(capsys):
-    outs = launch_serve.main(["--arch", "gemma2-27b", "--smoke",
+@pytest.mark.parametrize("arch", ["gemma2-27b", "recurrentgemma-9b",
+                                  "falcon-mamba-7b", "deepseek-moe-16b",
+                                  "mixtral-8x22b"])
+def test_launcher_runs_on_cpu_by_request(capsys, arch):
+    outs = launch_serve.main(["--arch", arch, "--smoke",
                               "--requests", "3", "--new-tokens", "4",
                               "--device", "cpu"])
     assert len(outs) == 3 and all(1 <= len(o) <= 4 for o in outs)
@@ -129,6 +133,30 @@ def test_launcher_runs_on_cpu_by_request(capsys):
     assert launch_serve.param_dtype(cfg, True) == torch.float32
     assert launch_serve.param_dtype(
         dataclasses.replace(cfg), False) == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "falcon-mamba-7b"])
+def test_engine_state_stays_in_its_storage(arch):
+    """What a captured decode step needs: the engine's caches keep their
+    storage through decode steps, refills and a second joint prefill,
+    and a decode step writes each recurrent layer's new state into it
+    (the reference's engine gets new arrays back instead)."""
+    cfg = get_smoke_config(arch)
+    params = init_params(T_P.param_defs(cfg), 0, device="cpu")
+    eng = _engine(cfg, ServeConfig(batch_slots=2, max_len=64), params)
+    rng = np.random.RandomState(9)
+    prompts = [[int(x) for x in rng.randint(2, cfg.vocab, 5 + i)]
+               for i in range(5)]
+    eng.generate(prompts[:2], max_new_tokens=3)
+    ptrs = [[x.data_ptr() for x in c] for c in eng._caches]
+    states = [c for c in eng._caches if not isinstance(c, KVCache)]
+    assert states
+    before = [[x.clone() for x in c] for c in states]
+    eng._step(np.asarray([3, 4], np.int32))
+    assert all(not torch.equal(a, b) for c, old in zip(states, before)
+               for a, b in zip(c, old))
+    eng.generate(prompts, max_new_tokens=4)
+    assert [[x.data_ptr() for x in c] for c in eng._caches] == ptrs
 
 
 def test_engine_refuses_params_on_another_device():
