@@ -11,7 +11,8 @@ from ..models.config import ModelConfig
 from . import (deepseek_moe_16b, falcon_mamba_7b, gemma2_27b,
                internvl2_26b, mixtral_8x22b, phi3_medium_14b, qwen2_5_32b,
                recurrentgemma_9b, starcoder2_3b, whisper_base)
-from .common import SHAPES, ShapeCell, decode_cache_len, reduced, supports
+from .common import (SHAPES, ShapeCell, decode_cache_len, input_specs,
+                     reduced, supports)
 
 _MODULES = {
     m.ARCH: m for m in (
@@ -43,4 +44,5 @@ def all_cells():
 
 
 __all__ = ["ARCHS", "SHAPES", "ShapeCell", "all_cells", "decode_cache_len",
-           "get_config", "get_smoke_config", "reduced", "supports"]
+           "get_config", "get_smoke_config", "input_specs", "reduced",
+           "supports"]

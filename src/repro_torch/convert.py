@@ -14,12 +14,15 @@ the card, as everywhere in the port; pass ``device="cpu"`` for the CPU.
   * ``state_from_numpy``      -> ``FluidState``
   * ``state_to_numpy``        -> ``FluidState`` of numpy arrays, with the
     reference's dtypes (float32, and int32 for the integer fields)
-  * ``params_from_numpy``     -> the transformer's param tree (the
-    reference's stacked ``groups/p{j}`` leaves unstacked into the port's
-    flat ``layers`` list)
+  * ``params_from_numpy``     -> a model's param tree: the transformer's
+    (the reference's stacked ``groups/p{j}`` leaves unstacked into the
+    port's flat ``layers`` list), the VLM's (that trunk plus its
+    ``projector``) or the encoder-decoder's (stacked ``enc`` / ``dec``
+    unstacked into lists)
   * ``caches_from_numpy`` / ``caches_to_numpy`` -> the per-layer caches
     (``KVCache``, ``SSMState``, ``RGLRUState``) and back to the
-    reference's nesting
+    reference's nesting (the encoder-decoder's: one ``KVCache`` stacked
+    over the decoder layers, ``pos`` [n_layers])
 """
 
 from __future__ import annotations
@@ -140,22 +143,53 @@ def _flat_layers(cfg, head, groups, tail, take):
     return out + list(tail)
 
 
+#: the top-level keys of the reference's param trees, by model
+_TRUNK_KEYS = {"embed", "head_blocks", "groups", "tail_blocks",
+               "final_norm", "logits"}
+_ENCDEC_KEYS = {"enc_pos", "enc", "enc_norm", "embed", "dec_pos", "dec",
+                "final_norm", "logits"}
+
+
+def _unstack(tree, n: int, conv) -> list:
+    """A tree of leaves stacked on a leading ``layers`` axis of ``n`` as
+    ``n`` trees of converted leaves."""
+    return [_tree(tree, lambda a: conv(np.asarray(a)[i])) for i in range(n)]
+
+
 def params_from_numpy(cfg, tree, device=None) -> dict:
-    """The reference's param tree (numpy leaves) as the port's: each
-    ``groups/p{j}`` leaf is unstacked along its leading ``layers`` axis
-    into the flat layer list."""
+    """The reference's param tree (numpy leaves) as the port's.  A
+    decoder-only trunk: each ``groups/p{j}`` leaf is unstacked along its
+    leading ``layers`` axis into the flat layer list; a VLM adds its
+    ``projector``; an encoder-decoder unstacks ``enc`` and ``dec`` into
+    lists.  Raises ``KeyError`` on a top-level key the model does not
+    have."""
     from .models.transformer import check_ported
     check_ported(cfg)
     device = resolve_device(device)
     conv = lambda a: _leaf(a, device)  # noqa: E731
+    known = (_ENCDEC_KEYS if cfg.encdec is not None else
+             _TRUNK_KEYS | ({"projector"} if cfg.vlm is not None else set()))
+    unknown = sorted(set(tree) - known)
+    if unknown:
+        raise KeyError(f"params_from_numpy: {cfg.name} has no param "
+                       f"{unknown}")
+    if cfg.encdec is not None:
+        out = {k: _tree(tree[k], conv) for k in tree
+               if k not in ("enc", "dec")}
+        out["enc"] = _unstack(tree["enc"], cfg.encdec.n_enc_layers, conv)
+        out["dec"] = _unstack(tree["dec"], cfg.n_layers, conv)
+        return out
     layers = _flat_layers(
         cfg, tree.get("head_blocks", []), tree.get("groups", {}),
         tree.get("tail_blocks", []),
         lambda g, i: _tree(g, lambda a: np.asarray(a)[i]))
-    return {"embed": _tree(tree["embed"], conv),
-            "layers": [_tree(b, conv) for b in layers],
-            "final_norm": _tree(tree["final_norm"], conv),
-            "logits": _tree(tree.get("logits", {}), conv)}
+    out = {"embed": _tree(tree["embed"], conv),
+           "layers": [_tree(b, conv) for b in layers],
+           "final_norm": _tree(tree["final_norm"], conv),
+           "logits": _tree(tree.get("logits", {}), conv)}
+    if "projector" in tree:
+        out["projector"] = _tree(tree["projector"], conv)
+    return out
 
 
 def _cache_types(cfg) -> list:
@@ -168,36 +202,49 @@ def _cache_types(cfg) -> list:
     return [by_kind.get(k, KVCache) for k in layer_kinds(cfg)]
 
 
+def _fields(c) -> dict:
+    names = c.keys() if isinstance(c, dict) else c._fields
+    return {f: np.asarray(_get(c, f)) for f in names}
+
+
+def _pos_leaf(a, device) -> torch.Tensor:
+    return _leaf(np.asarray(a, np.int32), device)
+
+
 def caches_from_numpy(cfg, tree, device=None) -> list:
     """The reference's caches (``{"head": [...], "groups": {"p{j}":
     stacked}, "tail": [...]}`` of ``KVCache`` / ``SSMState`` /
-    ``RGLRUState`` with numpy leaves) as the port's per-layer list; a
-    ``KVCache``'s ``pos`` becomes a [] int32 tensor."""
+    ``RGLRUState`` with numpy leaves; an encoder-decoder's one
+    ``KVCache`` stacked over the decoder layers) as the port's per-layer
+    list; a ``KVCache``'s ``pos`` becomes a [] int32 tensor (each
+    layer's own, from the stacked ``pos`` [n_layers])."""
+    from .models.attention import KVCache
     device = resolve_device(device)
-
-    def fields(c):
-        names = c.keys() if isinstance(c, dict) else c._fields
-        return {f: np.asarray(_get(c, f)) for f in names}
+    if cfg.encdec is not None:
+        c = _fields(tree)
+        return [KVCache(k=_leaf(c["k"][i], device), v=_leaf(c["v"][i], device),
+                        pos=_pos_leaf(c["pos"][i], device))
+                for i in range(cfg.n_layers)]
 
     layers = _flat_layers(
-        cfg, [fields(c) for c in tree.get("head", [])],
-        tree.get("groups", {}), [fields(c) for c in tree.get("tail", [])],
+        cfg, [_fields(c) for c in tree.get("head", [])],
+        tree.get("groups", {}), [_fields(c) for c in tree.get("tail", [])],
         lambda c, i: {f: a.reshape(-1)[i] if f == "pos" else a[i]
-                      for f, a in fields(c).items()})
+                      for f, a in _fields(c).items()})
     out = []
     for cls, c in zip(_cache_types(cfg), layers):
-        leaves = {f: _leaf(np.asarray(c[f], np.int32) if f == "pos"
-                           else c[f], device) for f in cls._fields}
+        leaves = {f: _pos_leaf(c[f], device) if f == "pos"
+                  else _leaf(c[f], device) for f in cls._fields}
         out.append(cls(**leaves))
     return out
 
 
-def caches_to_numpy(cfg, caches) -> dict:
+def caches_to_numpy(cfg, caches):
     """The port's per-layer caches in the reference's nesting, numpy
-    leaves (float32 state, ``pos`` int32); a stacked group stacks every
-    leaf along a leading layers axis."""
+    leaves (float32 state, ``pos`` int32); a stacked group (and an
+    encoder-decoder's decoder) stacks every leaf along a leading layers
+    axis."""
     from .models.transformer import layer_plan
-    head, pat, n_groups, tail = layer_plan(cfg)
 
     def one(c):
         return type(c)(**{
@@ -206,6 +253,9 @@ def caches_to_numpy(cfg, caches) -> dict:
             for f, x in zip(c._fields, c)})
 
     flat = [one(c) for c in caches]
+    if cfg.encdec is not None:
+        return type(flat[0])(*(np.stack(leaves) for leaves in zip(*flat)))
+    head, pat, n_groups, tail = layer_plan(cfg)
     out = {"head": flat[:len(head)]}
     body = flat[len(head):len(head) + n_groups * len(pat)]
     if n_groups:

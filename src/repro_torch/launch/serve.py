@@ -29,6 +29,7 @@ from ..core.fluid import resolve_device
 from ..models import transformer
 from ..models.layers import init_params
 from ..serve import ServeConfig, ServingEngine
+from ..serve.engine import decoder_only
 
 
 def param_dtype(cfg, smoke: bool) -> torch.dtype:
@@ -50,8 +51,10 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    if cfg.encdec is not None or cfg.vlm is not None:
-        raise SystemExit("serve.py drives decoder-only LMs")
+    try:
+        decoder_only(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"serve.py: {e}") from None
     cfg = dataclasses.replace(cfg, use_pallas=True)
     device = resolve_device(args.device)
     params = init_params(transformer.param_defs(cfg), 0,

@@ -1,15 +1,15 @@
-"""repro_torch.models — the decoder-only model families in PyTorch (port
+"""repro_torch.models — every model family of the repo in PyTorch (port
 of ``repro.models``: ``config``, ``layers``, ``attention``, ``moe``,
-``rglru``, ``ssm`` and ``transformer``; ``encdec`` and ``vlm`` are not
-ported yet)."""
+``rglru``, ``ssm``, ``transformer``, ``encdec`` and ``vlm``; the mesh
+helpers ``param_specs`` and ``abstract_params`` are not ported)."""
 
 from .config import (EncDecConfig, ModelConfig, MoEConfig, RGLRUConfig,
                      SSMConfig, VLMConfig)
-from . import attention, layers, moe, rglru, ssm, transformer
+from . import attention, encdec, layers, moe, rglru, ssm, transformer, vlm
 from .layers import init_params, param_shapes
 
 __all__ = [
     "EncDecConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
-    "VLMConfig", "attention", "layers", "moe", "rglru", "ssm",
-    "transformer", "init_params", "param_shapes",
+    "VLMConfig", "attention", "encdec", "layers", "moe", "rglru", "ssm",
+    "transformer", "vlm", "init_params", "param_shapes",
 ]

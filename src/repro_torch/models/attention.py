@@ -1,6 +1,7 @@
-"""GQA attention: causal / sliding-window variants with a KV cache (port
-of ``repro.models.attention``; ``cross_attention`` and ``encode_kv`` wait
-with the encoder-decoder port).
+"""GQA attention: causal / sliding-window variants with a KV cache, and
+the encoder-decoder's bidirectional and cross attention (port of
+``repro.models.attention``; its ``cache_spec``, logical mesh axes, stays
+with the mesh helpers the port does not carry).
 
 KV cache layout: ``k, v: [batch, cache_len, n_kv, head_dim]`` plus
 ``pos``, the absolute number of tokens already cached: a ``[]`` int32
@@ -249,3 +250,28 @@ def _decode_mask(cache: KVCache, kind: str, cfg: ModelConfig):
     else:
         valid = idx < cache.pos
     return valid[None, :]
+
+
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+    """Decoder cross-attn over precomputed encoder K/V (whisper): plain
+    ``_mha`` without a mask, as the reference's (no Pallas kernel)."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    k, v = enc_kv
+    out = _mha(q, k, v, cfg, None)
+    b, t, h, hd = out.shape
+    wo = p["wo"].to(x.dtype)
+    return out.reshape(b, t, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+
+
+def encode_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The encoder states' K and V [b, s, kv, hd] under ``p``'s
+    projections (biases where ``p`` holds them)."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v

@@ -157,6 +157,16 @@ def apply_logits(p: dict, embed_p: dict, x: torch.Tensor, tied: bool,
     return logits.float()
 
 
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` over
+    the positions where ``labels >= 0``."""
+    mask = labels >= 0
+    lab = torch.clamp_min(labels, 0).long()
+    logp = torch.log_softmax(logits, -1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ in turn, then tail), and runs them in a Python loop.
 
 Entry points:
   * param_defs(cfg)                          — ParamDef tree
-  * forward(params, cfg, tokens)             — (logits, MoE aux loss),
+  * forward(params, cfg, tokens, embeds=None) — (logits, MoE aux loss),
     as the reference's
-  * prefill(params, cfg, tokens, max_len)    — last logits + caches
+  * prefill(params, cfg, tokens, max_len, caches=None, embeds=None)
+                                             — last logits + caches
   * decode_step(params, cfg, token, caches, pos) — one-token serve step
     (``pos`` a [] int32 tensor, as in the reference)
   * init_caches(cfg, batch, max_len, dtype, device)
@@ -22,8 +23,12 @@ A layer's cache is a ``KVCache`` (attention kinds), an ``SSMState``
 tensor but ``KVCache.pos``.  Given caches are written in place: the K/V
 rows by the attention, a recurrent layer's new state copied into the
 caller's state tensors, so a captured decode step reads and writes the
-same storage at every replay.  The encoder-decoder and VLM configs
-raise ``NotImplementedError``.
+same storage at every replay.  ``embeds=`` (``[b, t, d_model]``) takes
+the place of the token embedding: the VLM (``models/vlm.py``) runs its
+fused patch and token sequence through this trunk.  An encoder-decoder
+config gets the trunk's defs from ``param_defs``, as in the reference
+(``ModelConfig.param_count`` counts them); its model is
+``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -43,9 +48,6 @@ from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
 #: the block kinds this port runs
 ATTN_KINDS = ("attn", "local", "moe_attn", "moe_local", "dense_attn")
 PORTED_KINDS = ATTN_KINDS + ("rec", "ssm")
-
-_UNPORTED = ("not ported yet: ROADMAP Queue 1 item 1b (the "
-             "encoder-decoder and VLM models)")
 
 
 def layer_plan(cfg: ModelConfig):
@@ -71,12 +73,7 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run."""
-    if cfg.encdec is not None:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  + _UNPORTED)
-    if cfg.vlm is not None:
-        raise NotImplementedError(f"{cfg.name}: VLM models are " + _UNPORTED)
+    """Raise ``ValueError`` for a block kind this port does not know."""
     for kind in sorted(set(layer_kinds(cfg))):
         if kind not in PORTED_KINDS:
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
@@ -196,26 +193,37 @@ def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
             ).expand(b, t)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
+def _embed_in(params, cfg: ModelConfig, tokens, embeds):
+    if embeds is not None:
+        return embeds
+    return embed_lookup(params["embed"], tokens, cfg.embed_scale,
+                        cfg.d_model)
+
+
+def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            embeds: Optional[torch.Tensor] = None):
     """tokens [b, t] -> (logits [b, t, vocab] float32, the MoE layers'
     summed aux loss, a [] float32 tensor), as the reference's (no
-    cache)."""
-    x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
+    cache).  ``embeds`` [b, t, d_model], when given, replaces the token
+    embedding (``tokens`` is then unused)."""
+    x = _embed_in(params, cfg, tokens, embeds)
     b, t = x.shape[:2]
     x, _, aux = _trunk(params, cfg, x, _positions(b, t, 0, x.device), None)
     return apply_logits(params["logits"], params["embed"], x,
                         cfg.tie_embeddings, cfg.softcap_final), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
-            caches: Optional[list] = None):
+def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            max_len: int, caches: Optional[list] = None,
+            embeds: Optional[torch.Tensor] = None):
     """Prefill: fills caches, returns last-position logits + caches.
 
     ``caches`` (``init_caches(cfg, b, max_len, ...)``'s shapes) are
     zeroed and written in place instead of allocating a new set; the
     returned caches share their storage (a ``KVCache`` its ``k``/``v``, a
-    recurrent state all of its tensors)."""
-    x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
+    recurrent state all of its tensors).  ``embeds`` as in ``forward``:
+    positions run over its whole sequence, from 0."""
+    x = _embed_in(params, cfg, tokens, embeds)
     b, t = x.shape[:2]
     if caches is None:
         caches = init_caches(cfg, b, max_len, x.dtype, x.device)

@@ -34,6 +34,22 @@ from ..models.attention import KVCache
 from ..models.config import ModelConfig
 
 
+def decoder_only(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model this engine does not
+    serve, naming the entry points that run it (the reference's
+    launcher refuses them too: "serve.py drives decoder-only LMs")."""
+    if cfg.encdec is not None:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder model: the engine serves "
+            "decoder-only LMs; run repro_torch.models.encdec.prefill and "
+            "decode_step")
+    if cfg.vlm is not None:
+        raise NotImplementedError(
+            f"{cfg.name} is a VLM: the engine serves decoder-only LMs; run "
+            "repro_torch.models.vlm.prefill, then "
+            "repro_torch.models.transformer.decode_step from p + t")
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     batch_slots: int = 8
@@ -83,6 +99,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, sv: ServeConfig,
                  device=None):
         self.device = resolve_device(device)
+        decoder_only(cfg)
         transformer.check_ported(cfg)
         table = params["embed"]["table"]
         if table.device != self.device:

@@ -1,6 +1,7 @@
 """Helpers shared by the port's model-family tests
-(``tests/test_torch_{rglru,ssm,moe}.py``): seeded numpy weights for a
-``ParamDef`` tree, the closeness bound, and the engine comparison."""
+(``tests/test_torch_{rglru,ssm,moe,encdec,vlm}.py``): seeded numpy
+weights for a ``ParamDef`` tree, the closeness bound, and the engine
+comparison."""
 
 import dataclasses
 
@@ -22,6 +23,31 @@ def np_params(defs, seed: int, scale: float = 1.0) -> dict:
         out[name] = (rng.randn(*shape) * scale / np.sqrt(fan)).astype(
             np.float32)
     return out
+
+
+def perturbed(defs, seed: int):
+    """The reference's float32 params from ``seed``, with the leaves it
+    initialises to zeros or ones (biases, norm scales and offsets) moved
+    by N(0, 0.05), so that they count.  (Moving every matrix too grows
+    the residual stream to ~290 and puts the reference's own jit and
+    eager logits 4.5e-4 of their largest apart, past the bound.)"""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import init_params as init_R
+    rng = np.random.RandomState(seed)
+    tree = jax.tree.map(np.asarray, init_R(defs, seed, jnp.float32))
+    return jax.tree.map(
+        lambda d, a: (a + 0.05 * rng.randn(*a.shape)).astype(np.float32)
+        if d.init in ("zeros", "ones") else a, defs, tree,
+        is_leaf=lambda x: hasattr(x, "dims"))
+
+
+def shape_count(shapes) -> int:
+    """Elements of a ``param_shapes`` tree (shape tuples at the leaves)."""
+    if isinstance(shapes, tuple):
+        return int(np.prod(shapes))
+    vals = shapes.values() if isinstance(shapes, dict) else shapes
+    return sum(shape_count(v) for v in vals)
 
 
 def to_torch(tree):

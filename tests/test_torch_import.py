@@ -35,7 +35,9 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.tune.pareto, repro_torch.ckpt, "
             "repro_torch.ckpt.checkpoint, repro_torch.core.serialize, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
-            "repro_torch.models.rglru, repro_torch.models.scan; "
+            "repro_torch.models.rglru, repro_torch.models.scan, "
+            "repro_torch.models.encdec, repro_torch.models.vlm, "
+            "repro_torch.configs.common; "
             "from repro_torch.serve import make_serve_step, whatif; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -48,13 +50,13 @@ def test_import_loads_neither_jax_nor_reference():
 @pytest.mark.parametrize("pkg", ["serve", "models"])
 def test_package_names_match_reference(pkg):
     """``repro_torch.<pkg>`` binds the reference's names; ``models``
-    binds all of them but the reference's ``encdec``, ``vlm`` and mesh
-    helpers (ROADMAP Queue 1)."""
+    binds all of them but the reference's mesh helpers (ROADMAP Queue
+    1)."""
     import importlib
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
-    unported = {"models": {"encdec", "vlm", "abstract_params",
-                           "param_specs"}}.get(pkg, set())
+    unported = {"models": {"abstract_params", "param_specs"}}.get(
+        pkg, set())
     assert set(port.__all__) == set(ref.__all__) - unported
     if pkg == "serve":
         assert port.__all__ == ref.__all__

@@ -8,7 +8,8 @@ and through ``use_pallas`` (the kernels' plain versions on the CPU);
 ``tests/test_torch_families.py`` runs the same prefill and decode
 checks on the RG-LRU, SSM and MoE families.  Their ``forward`` (logits
 and MoE aux loss), param trees, param counts and bfloat16 leaves, and
-the unported configs, are held here.
+the serving path's refusal of the encoder-decoder and VLM configs, are
+held here.
 
 Bound: every logit and cache element within 1e-4 of the reference,
 relative to the largest magnitude of the tensor
@@ -32,6 +33,7 @@ import jax.numpy as jnp                                     # noqa: E402
 from _torch_families import (FAMILIES, MAX_LEN, cache_leaves,  # noqa: E402
                              forward_match, models, near,
                              prefill_and_decode_match)
+from repro.configs import ARCHS as ALL_ARCHS                # noqa: E402
 from repro.configs import get_config as get_config_R        # noqa: E402
 from repro.configs import get_smoke_config as smoke_R       # noqa: E402
 from repro.models import transformer as T_R                 # noqa: E402
@@ -90,18 +92,50 @@ def test_param_count_and_tree_match_reference(arch):
     assert T_P.n_params(own) == cfg_p.param_count()
 
 
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_param_count_matches_reference_for_every_config(arch):
+    """``ModelConfig.param_count`` (the trunk's defs) is the reference's
+    for all ten configs: whisper-base 72,022,016 and internvl2-26b
+    19,861,260,288 among them."""
+    assert get_config(arch).param_count() == get_config_R(arch).param_count()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "whisper-base",
+                                  "internvl2-26b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_input_specs_match_reference(arch, shape):
+    """``configs.common.input_specs``: meta-device tensors of the
+    reference's ``ShapeDtypeStruct`` shapes and dtypes."""
+    from repro.configs import input_specs as specs_R
+    from repro_torch.configs import input_specs
+    want = specs_R(get_config_R(arch), shape)
+    got = input_specs(get_config(arch), shape)
+    assert set(got) == set(want)
+    for k, spec in got.items():
+        assert spec.device.type == "meta", k
+        assert tuple(spec.shape) == tuple(want[k].shape), k
+        assert str(spec.dtype)[6:] == str(want[k].dtype), k
+
+
 @pytest.mark.parametrize("arch,what", [
-    ("whisper-base", "encoder-decoder"), ("internvl2-26b", "VLM")],
-    ids=["encdec", "vlm"])
+    ("whisper-base", "repro_torch.models.encdec"),
+    ("internvl2-26b", "repro_torch.models.vlm")], ids=["encdec", "vlm"])
 def test_unported_kinds_raise(arch, what):
+    """The decoder-only serving path refuses the encoder-decoder and the
+    VLM, naming the model module that runs each (the reference's
+    launcher refuses both too); their trunk defs build, as the
+    reference's do (``param_count`` counts them)."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import ServeConfig, ServingEngine
     cfg = get_smoke_config(arch)
-    for fn in (lambda: T_P.param_defs(cfg),
-               lambda: T_P.init_caches(cfg, 1, 8, torch.float32, "cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 1b"):
-            fn()
+    defs = T_P.param_defs(cfg)
+    assert len(defs["layers"]) == cfg.n_layers
+    params = init_params(defs, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
-        T_P.check_ported(cfg)
+        ServingEngine(cfg, params, ServeConfig(), device="cpu")
+    with pytest.raises(SystemExit, match=what):
+        launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    T_P.check_ported(cfg)
 
 
 @pytest.mark.parametrize("arch,group,path,layer", [
