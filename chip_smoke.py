@@ -173,7 +173,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
                benchmarks/tune_bench.py's ES_KW (improved, one capture a
                population shape) and by gradient at the acceptance
                settings with iters cut to fit; a GradTuner killed after 2
-               iterations and resumed bitwise equal to 4 straight.
+               iterations and resumed bitwise equal to 4 straight;
+ 20. train   — the training path (``repro_torch.train``: data, AdamW,
+               the chunked loss head, remat, the loop) under
+               deterministic algorithms, attention on the plain path (the
+               kernels have no backward); (b)-(e), untimed, run while the
+               tune phase waits on its host-bound children, (a) last, on
+               a quiet card: (a) starcoder2-3b at full width
+               cut to 16 of 30 layers (bf16 params, f32 master, remat
+               full, the head in 256-position chunks, 8 x 1024 zipf
+               tokens), 4 steps through ``train_loop``: losses and grad
+               norms finite, ms a step, tokens/s, the model FLOP rate and
+               its share of the bf16 peak, the optimizer's share, peak
+               memory, no kernel launched, one more step profiled (idle
+               share); (b) the same width at depth 2: loss and gradients
+               under remat none / full / dots bitwise equal, two 3-step
+               runs from one seed bitwise equal; (c) starcoder2's smoke
+               config in float32 with microbatches 2 and int8 + EF
+               compression, 5 steps on the card and on the CPU, within
+               ``TRAIN_CVC_*``; (d) examples/quickstart.py's model on the
+               card: a run resumed from its step-10 checkpoint, and one
+               resumed after a ``stop_flag`` save, bitwise the
+               uninterrupted 20 steps; the launcher (``python -m
+               repro_torch.launch.train --smoke``) resumed in a child
+               process, its step-20 checkpoint bitwise the uninterrupted
+               run's; (e) a loss with ``use_pallas=True`` under autograd
+               raises (no launch), without autograd it equals the plain
+               path's, and the plain path gives every leaf a gradient.
 Kernel launch counts are zeroed just before each path's run and read
 just after; every path asserts each of its kernels' exact count, and
 flash_attention's exact count on each route.
@@ -239,6 +265,10 @@ WHOLE_STEP = {
 MEGA_OPS_PER_FLOW_HOP = 48
 MEGA_OPS_PER_ENTRY = 8
 
+
+#: the whole script's time budget (half the driver's 1200 s limit); the
+#: total line states the time against it
+BUDGET_S = 600
 
 #: the script's start: every phase line carries its seconds since
 _T0 = time.perf_counter()
@@ -4190,7 +4220,7 @@ def tune_grad_autotune() -> dict:
             "trace_values": gr.trace.value.tolist(), **gr.to_record()}
 
 
-def phase_tune(device) -> dict:
+def phase_tune(device, beside=None) -> dict:
     """The autotuning path: the soft model's temperature-0 identity and
     its card-vs-CPU agreement, ``value_and_grad`` through the kernels'
     autograd rules (bitwise repeatable, against the CPU, launches, ms a
@@ -4199,13 +4229,15 @@ def phase_tune(device) -> dict:
     killed-and-resumed GradTuner.  The CPU references, the gradient
     ``autotune`` and the second ``value_and_grad`` run in child
     processes beside the rest (the last two started after the timed
-    call, so that call has the card alone)."""
+    call, so that call has the card alone).  ``beside()``, if given, runs
+    in this process while those children finish; what it returns is
+    ``rec["beside"]``."""
     from repro_torch.core import SWEEP_EXEC_CACHE
     t_phase = time.perf_counter()
     rec = {"phase": "tune"}
     children = [_child("tune_cpu_refs")]
     try:
-        _phase_tune(device, rec, children)
+        _phase_tune(device, rec, children, beside)
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -4217,7 +4249,7 @@ def phase_tune(device) -> dict:
     return rec
 
 
-def _phase_tune(device, rec: dict, children: list) -> None:
+def _phase_tune(device, rec: dict, children: list, beside=None) -> None:
     import tempfile
     import numpy as np
     import torch
@@ -4381,6 +4413,9 @@ def _phase_tune(device, rec: dict, children: list) -> None:
     emit({"phase": "tune", "check": "value_and_grad", **vag})
     assert vag["value_rel_vs_cpu"] <= 2e-3 and cos >= 0.99, vag
 
+    if beside is not None:         # the children are host-bound
+        rec["beside"] = beside()
+
     # 3 once more (the second child on the card): bitwise the first call
     again = _join(children[2], "the second value_and_grad")
     vag["second_call_s_in_a_child"] = again["seconds"]
@@ -4401,6 +4436,537 @@ def _phase_tune(device, rec: dict, children: list) -> None:
     assert rec["grad"]["trace_values"][0] == v1, (rec["grad"], v1)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: train
+# ---------------------------------------------------------------------------
+
+#: starcoder2-3b at full width, depth cut 30 -> 16: the functional step
+#: holds two optimizer states (bf16 params, f32 master, mu, nu: 14 B a
+#: param each) and the grads, ~32 B a param: 58.8 GB at depth 16, 102 GB
+#: at 30 (the card holds 80)
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_LAYERS = 16
+TRAIN_STEPS = 4
+TRAIN_DATA = dict(seq_len=1024, global_batch=8, kind="zipf")
+TRAIN_LOSS_CHUNK = 256
+#: the card's dense bf16 peak (NVIDIA's data sheet, SXM, 700 W)
+BF16_PEAK_FLOPS = 989e12
+#: card against CPU (20c): starcoder2's smoke config in float32,
+#: microbatches 2, int8 + EF compression, 5 steps from the same weights.
+#: Each loss within 1e-4 relative; the params within 5e-2 of the
+#: distance the CPU run moved them (L2), no element further than 2 lr a
+#: step: AdamW's normalised steps turn a gradient within rounding of 0
+#: (cuBLAS against the CPU's products) into opposite signs on a few
+#: elements, as against the reference (tests/test_torch_train.py)
+TRAIN_CVC_STEPS = 5
+TRAIN_CVC_LR = 3e-3
+TRAIN_CVC_LOSS_RTOL = 1e-4
+TRAIN_CVC_PARAM_REL = 5e-2
+#: exact resume (20d): examples/quickstart.py's model and step config
+TRAIN_QS_STEPS = 20
+TRAIN_QS_EVERY = 10
+
+
+def _quickstart():
+    from repro_torch.data import DataConfig
+    from repro_torch.models import ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import StepConfig
+    cfg = ModelConfig(name="quickstart-3m", n_layers=4, d_model=128,
+                      n_heads=4, n_kv_heads=2, head_dim=32, d_ff=512,
+                      vocab=1024)
+    sc = StepConfig(opt=AdamWConfig(lr=1e-2, weight_decay=0.01),
+                    microbatches=2, compress_grads=True, warmup_steps=20,
+                    total_steps=300)
+    return cfg, sc, DataConfig(vocab=cfg.vocab, seq_len=128,
+                               global_batch=8, kind="markov")
+
+
+def _same_leaves(a, b) -> bool:
+    """Every leaf of two trees (tensors or numpy arrays) bitwise equal,
+    of one dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.optim._tree import leaves
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x, y.to(x.device)):
+                return False
+        elif x.dtype != y.dtype or not np.array_equal(x, y):
+            return False
+    return True
+
+
+def _finite(xs) -> bool:
+    import math
+    return all(math.isfinite(x) for x in xs)
+
+
+#: kernel-name fragments of a training step's kinds of device work
+TRAIN_KINDS = (("products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+               ("softmax", ("softmax",)),
+               ("reductions", ("reduce",)),
+               ("index / embedding", ("index", "embedding", "sort",
+                                      "scatter", "gather")),
+               ("copies and casts", ("copy",)),
+               ("elementwise", ("elementwise",)))
+
+
+def _kinds_ms(per: dict) -> dict:
+    """Device ms by kind of kernel (``TRAIN_KINDS``, first match by
+    name; the rest as other)."""
+    out = {k: 0.0 for k, _ in TRAIN_KINDS}
+    out["other"] = 0.0
+    for name, us in per.items():
+        low = name.lower()
+        kind = next((k for k, frags in TRAIN_KINDS
+                     if any(f in low for f in frags)), "other")
+        out[kind] += us / 1e3
+    return out
+
+
+def _train_full_width(device) -> dict:
+    """(a) ``TRAIN_STEPS`` steps of starcoder2-3b at full width, depth
+    ``TRAIN_LAYERS``, through ``train_loop``: ms a step, tokens/s, the
+    model FLOP rate (6 x params x tokens over the step), the optimizer's
+    share (CUDA events around ``adamw_update``), peak memory; then one
+    more step under torch.profiler (device busy, idle share)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    assert not cfg.use_pallas
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = S.StepConfig(opt=AdamWConfig())
+    state = S.init_train_state(cfg, init_params(
+        T.param_defs(cfg), 0, torch.bfloat16, device), sc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.n_params(state.params)
+    state_bytes = torch.cuda.memory_allocated()
+    data = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tokens = data.global_batch * data.seq_len
+    logged, events = [], []
+    update = S.adamw_update
+
+    def timed_update(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = update(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    step = S.make_train_step(cfg, sc)
+    # the loop's argument is the only reference to the first state, as a
+    # step holds two states at once and three do not fit the card
+    box = [state]
+    del state
+    S.adamw_update = timed_update
+    try:
+        reset_counts()
+        out = train_loop(step, box.pop(), data,
+                         TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                         log_every=1),
+                         on_metrics=lambda s, m: logged.append(
+                             (m["step_time"], float(m["grad_norm"]))))
+        launches = counts()
+    finally:
+        S.adamw_update = update
+    torch.cuda.synchronize()
+    step_ms = [t * 1e3 for t, _ in logged]
+    opt_ms = [a.elapsed_time(b) for a, b in events]
+    steady = float(np.median(step_ms[1:]))
+    flops = 6 * n_params * tokens
+    rec = {"config": f"{TRAIN_ARCH} d {cfg.d_model}, {cfg.n_heads}/"
+           f"{cfg.n_kv_heads} heads d {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+           f"{cfg.vocab}; {cfg.n_layers} of 30 layers; bf16 params + f32 "
+           f"master; remat {cfg.remat}; loss_chunk {cfg.loss_chunk}",
+           "params": n_params, "tokens_per_step": tokens,
+           "data": {**TRAIN_DATA, "vocab": cfg.vocab}, "init_s": init_s,
+           "state_bytes": state_bytes, "losses": out["losses"].tolist(),
+           "grad_norms": [g for _, g in logged], "step_ms": step_ms,
+           "steady_ms_per_step": steady,
+           "tokens_per_s": tokens / (steady / 1e3),
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / (steady / 1e3) / 1e12,
+           "share_of_bf16_peak": flops / (steady / 1e3) / BF16_PEAK_FLOPS,
+           "optimizer_ms_per_step": opt_ms,
+           "optimizer_share": float(np.median(opt_ms[1:])) / steady,
+           "launches": launches,
+           "peak_bytes_loop": torch.cuda.max_memory_allocated()}
+    final = out.pop("state")
+    batch = SyntheticLM(data).batch_at(TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, m = step(final, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+    del new, m, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    per, n_ops = _device_us(prof)
+    prof_rec = {"wall_ms": wall * 1e3, "loss": loss, "device_ops": n_ops}
+    if per:
+        busy = sum(per.values()) / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        prof_rec.update({"device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / (wall * 1e3),
+                         "device_ms_by_kind": _kinds_ms(per),
+                         "top_device_ms": [[k[:80], v / 1e3]
+                                           for k, v in top]})
+    else:
+        prof_rec["device"] = ("not measured (the profiler saw no device "
+                              "events)")
+    rec["profiled_step"] = prof_rec
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def _train_remat_and_repeat(device) -> dict:
+    """(b) the same width at depth 2: loss and gradients under remat
+    none, full and dots bitwise equal; two 3-step runs from seed 0
+    bitwise equal (losses and every leaf of the state)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim._tree import leaves, unflatten
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              loss_chunk=TRAIN_LOSS_CHUNK)
+    data = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in SyntheticLM(data).batch_at(0).items()}
+    params = init_params(T.param_defs(cfg), 0, torch.bfloat16, device)
+    got = {}
+    for remat in ("none", "full", "dots"):
+        flat = [p.detach().requires_grad_() for p in leaves(params)]
+        total, _ = T.loss_fn(unflatten(params, flat),
+                             dataclasses.replace(cfg, remat=remat),
+                             batch["tokens"], batch["labels"])
+        got[remat] = (total.detach(), torch.autograd.grad(total, flat))
+        del total, flat
+    remat_equal = {r: bool(torch.equal(got[r][0], got["none"][0]) and all(
+        torch.equal(a, b) for a, b in zip(got[r][1], got["none"][1])))
+        for r in ("full", "dots")}
+    loss = float(got["none"][0])
+    del got, params
+    sc = S.StepConfig(opt=AdamWConfig())
+    cfg = dataclasses.replace(cfg, remat="full")
+
+    def run():
+        state = S.init_train_state(cfg, init_params(
+            T.param_defs(cfg), 0, torch.bfloat16, device), sc)
+        return train_loop(S.make_train_step(cfg, sc), state, data,
+                          TrainLoopConfig(total_steps=3))
+
+    a = run()
+    b = run()
+    repeat_equal = bool((a["losses"] == b["losses"]).all()) and \
+        _same_leaves(a["state"], b["state"])
+    rec = {"layers": 2, "loss": loss, "remat_bitwise_equal_none": remat_equal,
+           "runs_bitwise_equal": repeat_equal,
+           "losses": a["losses"].tolist()}
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_card_vs_cpu(device) -> dict:
+    """(c) starcoder2's smoke config in float32 (TF32 off), microbatches 2
+    and int8 + EF compression: ``TRAIN_CVC_STEPS`` steps on the card and
+    on the CPU from the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim._tree import leaves
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    cfg = get_smoke_config(TRAIN_ARCH)
+    sc = S.StepConfig(opt=AdamWConfig(lr=TRAIN_CVC_LR), microbatches=2,
+                      compress_grads=True, warmup_steps=2,
+                      total_steps=TRAIN_CVC_STEPS)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8,
+                      kind="markov")
+    host = init_params(T.param_defs(cfg), 0, device="cpu")
+    loop = TrainLoopConfig(total_steps=TRAIN_CVC_STEPS)
+    step = S.make_train_step(cfg, sc)
+    cpu = train_loop(step, S.init_train_state(cfg, host, sc), data, loop)
+    card = train_loop(step, S.init_train_state(cfg, _to(host, device), sc),
+                      data, loop)
+    p0 = torch.cat([x.reshape(-1) for x in leaves(host)])
+    pc = torch.cat([x.reshape(-1) for x in leaves(cpu["state"].params)])
+    pg = torch.cat([x.reshape(-1).cpu()
+                    for x in leaves(card["state"].params)])
+    loss_rel = float(np.max(np.abs(card["losses"] - cpu["losses"])
+                            / np.abs(cpu["losses"])))
+    return {"config": f"{TRAIN_ARCH} smoke, float32, microbatches 2, "
+            "compressed", "steps": TRAIN_CVC_STEPS,
+            "losses_card": card["losses"].tolist(),
+            "losses_cpu": cpu["losses"].tolist(), "loss_rel": loss_rel,
+            "param_rel_l2": float((pg - pc).norm() / (pc - p0).norm()),
+            "param_max_abs": float((pg - pc).abs().max()),
+            "param_bound_abs": 2 * TRAIN_CVC_LR * TRAIN_CVC_STEPS,
+            "keys_equal": bool(torch.equal(card["state"].rng,
+                                           cpu["state"].rng))}
+
+
+def _launcher_start(tmp: str) -> tuple:
+    """The launcher (``python -m repro_torch.launch.train --smoke``) on the
+    card: 20 steps with a checkpoint every 10 in this process; its
+    directory copied without the step-20 checkpoint (a run killed after
+    step 10), and a child process started to finish it with the
+    launcher (``_launcher_finish`` compares)."""
+    import shutil
+    from repro_torch.ckpt import committed_steps
+    from repro_torch.launch import train as launcher
+    straight, killed = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(TRAIN_QS_STEPS),
+            "--ckpt-every", str(TRAIN_QS_EVERY), "--log-every", "10"]
+    t0 = time.perf_counter()
+    launcher.main(args + ["--ckpt-dir", straight])
+    st = {"straight": straight, "killed": killed,
+          "in_process_s": time.perf_counter() - t0}
+    assert committed_steps(straight) == [TRAIN_QS_EVERY, TRAIN_QS_STEPS]
+    shutil.copytree(straight, killed)
+    last = os.path.join(killed, f"step_{TRAIN_QS_STEPS:09d}")
+    shutil.rmtree(last)
+    os.remove(last + ".done")
+    st["t0"] = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--ckpt-dir", killed], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    return proc, st
+
+
+def _launcher_finish(proc, st: dict) -> dict:
+    """The child's step-20 checkpoint against the uninterrupted run's:
+    bitwise equal, every leaf and the data step."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.train.loop import NT_REGISTRY
+    out, err = proc.communicate(timeout=600)
+    child_s = time.perf_counter() - st["t0"]
+    if proc.returncode != 0:
+        raise RuntimeError(f"the launcher's resume failed (exit "
+                           f"{proc.returncode}):\n{err[-4000:]}")
+    want, extra_w = load_checkpoint(st["straight"], TRAIN_QS_STEPS,
+                                    nt_registry=NT_REGISTRY)
+    got, extra_g = load_checkpoint(st["killed"], TRAIN_QS_STEPS,
+                                   nt_registry=NT_REGISTRY)
+    return {"in_process_s": st["in_process_s"], "child_s": child_s,
+            "child_resumed_at": TRAIN_QS_EVERY,
+            "child_tail": out.strip().splitlines()[-2:],
+            "bitwise_equal": _same_leaves(got, want)
+            and extra_w == extra_g}
+
+
+def _train_resume(device) -> dict:
+    """(d) examples/quickstart.py's model (quickstart-3m, microbatches 2,
+    compression on) on the card: 20 straight steps against 10 with a
+    checkpoint and a resumed run to 20; a ``stop_flag`` save after 4 and a
+    resume to 20.  Every resumed state bitwise the uninterrupted run's.
+    (The launcher's resume: ``_launcher_start`` / ``_launcher_finish``.)"""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import latest_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    cfg, sc, data = _quickstart()
+    state0 = S.init_train_state(cfg, init_params(
+        T.param_defs(cfg), 0, torch.float32, device), sc)
+    step = S.make_train_step(cfg, sc)
+    t0 = time.perf_counter()
+    straight = train_loop(step, state0, data,
+                          TrainLoopConfig(total_steps=TRAIN_QS_STEPS))
+    straight_s = time.perf_counter() - t0
+    rec = {"config": "quickstart-3m, microbatches 2, compressed",
+           "steps": TRAIN_QS_STEPS, "straight_s": straight_s,
+           "losses": straight["losses"].tolist()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "resume")
+        first = train_loop(step, state0, data, TrainLoopConfig(
+            total_steps=TRAIN_QS_EVERY, ckpt_dir=ck,
+            ckpt_every=TRAIN_QS_EVERY))
+        second = train_loop(step, state0, data, TrainLoopConfig(
+            total_steps=TRAIN_QS_STEPS, ckpt_dir=ck,
+            ckpt_every=TRAIN_QS_EVERY))
+        rec["resumed_bitwise_equal"] = bool(np.array_equal(
+            np.concatenate([first["losses"], second["losses"]]),
+            straight["losses"])) and _same_leaves(second["state"],
+                                                  straight["state"])
+        ck = os.path.join(tmp, "stop")
+        calls = {"n": 0}
+
+        def stop_flag():
+            calls["n"] += 1
+            return calls["n"] >= 4
+
+        stopped = train_loop(step, state0, data, TrainLoopConfig(
+            total_steps=TRAIN_QS_STEPS, ckpt_dir=ck, ckpt_every=1000),
+            stop_flag=stop_flag)
+        saved = latest_step(ck)
+        after = train_loop(step, state0, data, TrainLoopConfig(
+            total_steps=TRAIN_QS_STEPS, ckpt_dir=ck, ckpt_every=1000))
+        rec["stop_flag"] = {"final_step": stopped["final_step"],
+                            "saved_step": saved,
+                            "resumed_bitwise_equal": _same_leaves(
+                                after["state"], straight["state"])}
+    return rec
+
+
+def _train_refuses_kernels(device) -> dict:
+    """(e) starcoder2's smoke config at depth 2 on the card: a loss under
+    autograd with ``use_pallas=True`` raises (the kernels have no
+    backward); without autograd the kernel path's loss is the plain
+    path's (2 flash launches); with ``use_pallas=False`` every leaf gets
+    a finite gradient."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim._tree import leaves, paths, unflatten
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), n_layers=2)
+    kern = dataclasses.replace(cfg, use_pallas=True)
+    params = init_params(T.param_defs(cfg), 0, device=device)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4)).batch_at(0)
+    tok, lab = (torch.from_numpy(batch[k]).to(device)
+                for k in ("tokens", "labels"))
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    reset_counts()
+    try:
+        T.loss_fn(unflatten(params, flat), kern, tok, lab)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    refused_launches = counts()
+    reset_counts()
+    with torch.no_grad():
+        lk, _ = T.loss_fn(params, kern, tok, lab)
+        lp, _ = T.loss_fn(params, cfg, tok, lab)
+    no_grad_launches = counts()
+    total, _ = T.loss_fn(unflatten(params, flat), cfg, tok, lab)
+    grads = torch.autograd.grad(total, flat)
+    names = ["/".join(map(str, p)) for p in paths(params)]
+    zero = [n for n, g in zip(names, grads) if not bool(g.abs().sum() > 0)]
+    return {"refused": refused, "launches_refused": refused_launches,
+            "no_grad_loss_kernel": float(lk), "no_grad_loss_plain": float(lp),
+            "no_grad_launches": no_grad_launches,
+            "leaves": len(grads),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads),
+            "zero_grad_leaves": zero}
+
+
+def train_checks(device) -> dict:
+    """Phase 20's checks (b)-(e), under deterministic algorithms (the
+    embedding's and ``gather``'s backward accumulate with ``index_put_``
+    / ``scatter_add_``) but (e).  None is timed: they run while the tune
+    phase waits on its host-bound children, the launcher's resume in a
+    child of its own beside (b)-(d)."""
+    import tempfile
+    from repro_torch.tune.optimizers import deterministic
+    rec = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, deterministic(device):
+        proc, st = _launcher_start(tmp)
+        try:
+            t0 = time.perf_counter()
+            rec["remat"] = b = _train_remat_and_repeat(device)
+            b["seconds"] = time.perf_counter() - t0
+            emit({"phase": "train", "check": "remat_and_repeat", **b})
+            assert all(b["remat_bitwise_equal_none"].values()), b
+            assert b["runs_bitwise_equal"], b
+            t0 = time.perf_counter()
+            rec["card_vs_cpu"] = c = _train_card_vs_cpu(device)
+            c["seconds"] = time.perf_counter() - t0
+            emit({"phase": "train", "check": "card_vs_cpu", **c})
+            assert c["loss_rel"] <= TRAIN_CVC_LOSS_RTOL, c
+            assert c["param_rel_l2"] <= TRAIN_CVC_PARAM_REL, c
+            assert c["param_max_abs"] <= c["param_bound_abs"], c
+            assert c["keys_equal"], c
+            t0 = time.perf_counter()
+            rec["resume"] = d = _train_resume(device)
+            d["seconds"] = time.perf_counter() - t0
+            d["launcher"] = _launcher_finish(proc, st)
+            emit({"phase": "train", "check": "resume", **d})
+            assert d["resumed_bitwise_equal"], d
+            assert d["stop_flag"]["final_step"] == \
+                d["stop_flag"]["saved_step"] == 4, d
+            assert d["stop_flag"]["resumed_bitwise_equal"], d
+            assert d["launcher"]["bitwise_equal"], d["launcher"]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    t0 = time.perf_counter()
+    rec["refusal"] = e = _train_refuses_kernels(device)
+    e["seconds"] = time.perf_counter() - t0
+    emit({"phase": "train", "check": "kernels_refuse_autograd", **e})
+    assert e["refused"] and "no backward" in e["refused"], e
+    assert not any(e["launches_refused"].values()), e
+    assert e["no_grad_launches"]["flash_attention"] == 2, e
+    assert abs(e["no_grad_loss_kernel"] - e["no_grad_loss_plain"]) <= \
+        1e-4 * abs(e["no_grad_loss_plain"]), e
+    assert e["finite"] and not [n for n in e["zero_grad_leaves"]
+                                if "/attn/w" in n], e
+    rec["seconds"] = time.perf_counter() - t_all
+    return rec
+
+
+def phase_train(device, checks: dict) -> dict:
+    """Phase 20, the training path (``repro_torch.train``): (a) on a quiet
+    card, under deterministic algorithms, after (b)-(e) (``checks``, run
+    beside the tune phase's children)."""
+    from repro_torch.tune.optimizers import deterministic
+    t_phase = time.perf_counter()
+    rec = {"phase": "train", "nvidia_smi": nvidia_smi(), **checks}
+    with deterministic(device):
+        rec["full_width"] = a = _train_full_width(device)
+    a["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train", "check": "full_width",
+          "nvidia_smi": rec["nvidia_smi"], **a})
+    assert _finite(a["losses"]) and _finite(a["grad_norms"]), a
+    assert len(a["losses"]) == TRAIN_STEPS, a
+    assert not any(a["launches"].values()), a["launches"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train", "seconds": rec["seconds"],
+          "checks_beside_tune_s": checks["seconds"]})
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4411,6 +4977,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # cuBLAS's deterministic workspace, for the train phase's deterministic
+    # algorithms (and its launcher child), before the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -4431,7 +5000,9 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    total = time.perf_counter() - t_start
+    emit({"phase": "total", "seconds": total, "budget_s": BUDGET_S,
+          "within_budget": total <= BUDGET_S})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4451,7 +5022,7 @@ def _paths_launches(rows: list, paths: dict) -> None:
 
 
 def _phases(device, pacer_cpu: dict) -> list:
-    """Phases 3-19; returns the kernels line's rows.  The pacer's CPU
+    """Phases 3-20; returns the kernels line's rows.  The pacer's CPU
     schedules (``pacer_cpu``, a process each) run beside the what-if and
     fleet phases, after the phases that time eager host work."""
     kern = phase_kernels(device)
@@ -4510,15 +5081,21 @@ def _phases(device, pacer_cpu: dict) -> list:
                      attn["flash_attention_cuda_core"],
                      attn["decode_attention"]], paths)
     phase_card_vs_cpu(device)
-    tune = phase_tune(device)
+    tune = phase_tune(device, beside=lambda: train_checks(device))
     for name in ("gen_np_step", "rp_step", "segment_reduce"):
         row = seg if name == "segment_reduce" else kern[name]
         row["tune_launches"] = \
             tune["value_and_grad"]["launches_forward"][name]
-    return list(kern.values()) + [seg, mstep, mblock,
+    rows = list(kern.values()) + [seg, mstep, mblock,
                                   attn["flash_attention"],
                                   attn["flash_attention_cuda_core"],
                                   attn["decode_attention"]]
+    train = phase_train(device, tune["beside"])
+    launched = train["full_width"]["launches"]
+    for row in rows:       # the training path launches none of them
+        row["train_launches"] = launched[row["name"].replace(
+            "_cuda_core", "")]
+    return rows
 
 
 if __name__ == "__main__":

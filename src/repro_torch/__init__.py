@@ -13,9 +13,12 @@ kernels of ``kernels.flash_attention`` / ``kernels.decode_attention``.
 ``tune.autotune`` tunes CC constants on it (autograd through the CC and
 ``segment_reduce`` kernels) and verifies them on the hard model;
 ``core.serialize`` and ``ckpt`` read and write the reference's formats.
+The models train through ``train`` (``optim``, ``data``,
+``launch.train``) with the plain attention: the kernels have no
+backward and refuse autograd.
 
     from repro_torch.core import ScenarioSpec, Sweep, CCScheme, PAPER_CONFIG
 """
 
 __all__ = ["core", "net", "kernels", "convert", "configs", "models",
-           "serve", "launch", "tune", "ckpt"]
+           "serve", "launch", "tune", "ckpt", "optim", "data", "train"]

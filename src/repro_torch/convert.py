@@ -23,6 +23,10 @@ the card, as everywhere in the port; pass ``device="cpu"`` for the CPU.
     (``KVCache``, ``SSMState``, ``RGLRUState``) and back to the
     reference's nesting (the encoder-decoder's: one ``KVCache`` stacked
     over the decoder layers, ``pos`` [n_layers])
+  * ``train_state_from_numpy`` -> ``repro_torch.train.TrainState``: the
+    params, moments, master copy and EF residual each through
+    ``params_from_numpy``, the step a [] int32, the PRNG key uint32[2]
+    on the CPU
 """
 
 from __future__ import annotations
@@ -266,3 +270,26 @@ def caches_to_numpy(cfg, caches):
                 np.stack(leaves) for leaves in zip(*group)))
     out["tail"] = flat[len(head) + n_groups * len(pat):]
     return out
+
+
+def train_state_from_numpy(cfg, state, device=None):
+    """The reference's ``TrainState`` (numpy leaves; its ``opt`` an
+    ``OptState``, ``ef`` an ``EFState`` or None) as the port's."""
+    from .optim import EFState, OptState
+    from .train import TrainState
+    device = resolve_device(device)
+    opt, ef = _get(state, "opt"), _get(state, "ef")
+
+    def tree(t):
+        return None if t is None else params_from_numpy(cfg, t, device)
+
+    return TrainState(
+        params=tree(_get(state, "params")),
+        opt=OptState(step=_leaf(np.asarray(_get(opt, "step"), np.int32),
+                                device),
+                     mu=tree(_get(opt, "mu")), nu=tree(_get(opt, "nu")),
+                     master=tree(_get(opt, "master"))),
+        ef=None if ef is None else EFState(
+            residual=tree(_get(ef, "residual"))),
+        rng=torch.from_numpy(np.asarray(_get(state, "rng"), np.uint32)
+                             .copy()))

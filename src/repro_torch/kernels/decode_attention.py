@@ -11,7 +11,9 @@ Dispatch is by device, never by flag: CPU tensors run the plain version
 ``csrc/decode_attention.cu`` (a split pass over the keys and a merge
 pass, one wrapper launch; built at first use) or raise.  Each launch adds
 one to ``LAUNCHES["decode_attention"]``.  Kernel and plain version agree
-to 3e-5 in float32 and 2e-2 in bfloat16 (the reference's bounds).
+to 3e-5 in float32 and 2e-2 in bfloat16 (the reference's bounds).  Like
+``flash_attention``, the kernel has no backward: a CUDA call under
+autograd with q, k or v requiring grad raises (``refuse_autograd``).
 
 ``decode_plan`` is the launch's geometry, computed on the host: how a
 K/V row is cut into 16-byte chunks over a warp's lanes, the tile of keys
@@ -27,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from .flash_attention import _DTYPES, MAX_HEAD_DIM, _cuda_stream, check_qkv
+from .flash_attention import (_DTYPES, MAX_HEAD_DIM, _cuda_stream, check_qkv,
+                              refuse_autograd)
 from .ref import decode_attention_ref
 
 #: kernel launches since the last ``reset_launch_counts``
@@ -166,6 +169,7 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel or plain version for "
                          f"device {q.device}")
+    refuse_autograd("decode_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = _cuda_stream("decode_attention", q.device)
     out = torch.empty_like(q)

@@ -20,6 +20,13 @@ fails to launch raises.  Each launch adds one to
 kernels sum in another order than the plain version's einsum and
 softmax, so they agree to a tolerance, not to the bit: 3e-5 in float32,
 2e-2 in bfloat16 (the reference's own bounds, ``tests/test_kernels.py``).
+
+The kernels have no backward, as the reference's Pallas kernels have
+none: on a CUDA tensor, a call under autograd with q, k or v requiring
+grad raises (``refuse_autograd``) instead of returning an output that
+drops the gradient.  The CPU branch (the plain version) differentiates,
+as the reference's ``ref`` backend does.  Training runs attention with
+``cfg.use_pallas=False``.
 """
 
 from __future__ import annotations
@@ -122,6 +129,18 @@ def check_qkv(name: str, q, k, v) -> None:
             raise ValueError(f"{name}: tensors on {x.device} and {q.device}")
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where a kernel would drop a gradient: autograd is on and an
+    input requires grad.  The CUDA kernels write their output through
+    raw pointers, so it would have no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and the reference "
+            f"cannot differentiate its Pallas kernels either; run attention "
+            f"with use_pallas=False to train (the plain path "
+            f"differentiates), or call it under torch.no_grad()")
+
+
 def _cuda_stream(name: str, dev: torch.device) -> int:
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors on {dev} but the current device "
@@ -145,6 +164,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel or plain version for "
                          f"device {q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)

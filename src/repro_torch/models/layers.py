@@ -135,7 +135,10 @@ def embed_defs(vocab: int, d_model: int) -> dict:
 
 def embed_lookup(p: dict, ids: torch.Tensor, scale: bool,
                  d: int) -> torch.Tensor:
-    x = p["table"][ids]
+    # F.embedding, not table[ids]: its backward sums a row's gradients in
+    # a fixed order on the CPU, where index_put_'s accumulation is
+    # threaded and unordered (a resumed run must repeat the bits)
+    x = F.embedding(ids, p["table"])
     if scale:
         # a device fill, not a host copy: capturable in a CUDA graph
         x = x * torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
@@ -157,14 +160,22 @@ def apply_logits(p: dict, embed_p: dict, x: torch.Tensor, tied: bool,
     return logits.float()
 
 
-def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood of ``labels`` under ``logits`` over
-    the positions where ``labels >= 0``."""
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor):
+    """(summed negative log-likelihood of ``labels`` under ``logits``, the
+    count of positions) over the positions where ``labels >= 0`` (the
+    reference's ``transformer._ce``)."""
     mask = labels >= 0
     lab = torch.clamp_min(labels, 0).long()
     logp = torch.log_softmax(logits, -1)
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    return (nll * mask).sum(), mask.sum()
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` over
+    the positions where ``labels >= 0``."""
+    tot, cnt = masked_ce(logits, labels)
+    return tot / torch.clamp_min(cnt, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,17 @@ Entry points:
   * decode_step(params, cfg, token, caches, pos) — one-token serve step
     (``pos`` a [] int32 tensor, as in the reference)
   * init_caches(cfg, batch, max_len, dtype, device)
+  * forward_hidden(params, cfg, tokens, embeds=None) — the trunk's output
+    before the LM head, and the MoE aux loss
+  * loss_fn(params, cfg, tokens, labels, embeds=None) — next-token
+    cross-entropy (labels -1 ignored) + MoE aux: ``(loss + aux, (loss,
+    aux))``, the head streamed over ``cfg.loss_chunk`` positions at a time
+
+Training (``caches=None`` under autograd) checkpoints each layer by
+``cfg.remat`` (``_remat``): ``"full"`` keeps a layer's inputs and
+recomputes the rest in the backward, ``"dots"`` keeps the outputs of
+its matrix products (JAX's ``checkpoint_dots_with_no_batch_dims``).
+Either gives the same bits as ``"none"``.
 
 A layer's cache is a ``KVCache`` (attention kinds), an ``SSMState``
 (``ssm``) or an ``RGLRUState`` (``rec``), batch on axis 0 of every
@@ -36,6 +47,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -43,7 +55,8 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
-                     embed_lookup, logits_defs, mlp_defs, norm_defs)
+                     embed_lookup, logits_defs, masked_ce, mlp_defs,
+                     norm_defs)
 
 #: the block kinds this port runs
 ATTN_KINDS = ("attn", "local", "moe_attn", "moe_local", "dense_attn")
@@ -171,17 +184,46 @@ def _apply_block(bp: dict, cfg: ModelConfig, kind: str, x, positions,
     return x + h, cache, aux
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of products without batch dims (``x @ W``; the
+    attention's batched einsums are ``bmm``), recompute the rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the activation checkpointing ``cfg.remat`` names (the
+    models draw no random numbers, so no RNG state is kept)."""
+    if cfg.remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          preserve_rng_state=False)
+    if cfg.remat == "dots":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          preserve_rng_state=False,
+                                          context_fn=_dots_context)
+    return fn
+
+
 def _trunk(params, cfg: ModelConfig, x, positions, caches):
     """Shared by forward/prefill/decode. caches=None for no cache.
-    Returns (x, caches, MoE aux loss)."""
+    Returns (x, caches, MoE aux loss).  Without caches and under
+    autograd, each layer runs under ``_remat``."""
     check_ported(cfg)
     kinds = layer_kinds(cfg)
     aux = torch.zeros((), device=x.device)
     new_caches = None if caches is None else []
+    block = (_remat(_apply_block, cfg)
+             if caches is None and torch.is_grad_enabled() else _apply_block)
     for i, kind in enumerate(kinds):
-        x, c, aux = _apply_block(params["layers"][i], cfg, kind, x,
-                                 positions,
-                                 None if caches is None else caches[i], aux)
+        x, c, aux = block(params["layers"][i], cfg, kind, x, positions,
+                          None if caches is None else caches[i], aux)
         if caches is not None:
             new_caches.append(c)
     x = apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
@@ -254,6 +296,62 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     return logits, caches
 
 
+def forward_hidden(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                   embeds: Optional[torch.Tensor] = None):
+    """Trunk output before the LM head (for chunked-loss heads):
+    (x [b, t, d_model], MoE aux loss)."""
+    x = _embed_in(params, cfg, tokens, embeds)
+    b, t = x.shape[:2]
+    x, _, aux = _trunk(params, cfg, x, _positions(b, t, 0, x.device), None)
+    return x, aux
+
+
+def _head_ce(params, cfg: ModelConfig, x, labels):
+    """The LM head and the cross-entropy sum (the reference's ``_ce``:
+    ``layers.masked_ce``) over a stretch of positions."""
+    logits = apply_logits(params["logits"], params["embed"], x,
+                          cfg.tie_embeddings, cfg.softcap_final)
+    return masked_ce(logits, labels)
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels,
+            embeds: Optional[torch.Tensor] = None):
+    """Next-token cross-entropy (labels = -1 ignored) + MoE aux:
+    ``(loss + aux, (loss, aux))``.
+
+    cfg.loss_chunk > 0 streams the LM head over sequence chunks, in the
+    reference's order (the chunks, then the ragged tail), so the [b, t,
+    vocab] logits tensor is never materialised: under autograd each
+    chunk's head is checkpointed, so its logits are recomputed in the
+    backward instead of kept."""
+    if cfg.loss_chunk <= 0:
+        logits, aux = forward(params, cfg, tokens, embeds)
+        tot, cnt = masked_ce(logits, labels)
+        loss = tot / torch.clamp_min(cnt, 1)
+        return loss + aux, (loss, aux)
+
+    x, aux = forward_hidden(params, cfg, tokens, embeds)
+    t = x.shape[1]
+    c = min(cfg.loss_chunk, t)
+    nc = t // c
+    bounds = [(i * c, (i + 1) * c) for i in range(nc)]
+    if nc * c < t:   # ragged tail
+        bounds.append((nc * c, t))
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for lo, hi in bounds:
+        xi, li = x[:, lo:hi], labels[:, lo:hi]
+        if torch.is_grad_enabled():
+            t_i, c_i = ckpt.checkpoint(_head_ce, params, cfg, xi, li,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            t_i, c_i = _head_ce(params, cfg, xi, li)
+        tot, cnt = tot + t_i, cnt + c_i
+    loss = tot / torch.clamp_min(cnt, 1)
+    return loss + aux, (loss, aux)
+
+
 def n_params(params) -> int:
     """Elements of a materialised param tree."""
     if isinstance(params, torch.Tensor):
@@ -264,5 +362,5 @@ def n_params(params) -> int:
 
 
 __all__ = ["ATTN_KINDS", "PORTED_KINDS", "check_ported", "decode_step",
-           "forward", "init_caches", "layer_kinds", "layer_plan", "n_params",
-           "param_defs", "prefill"]
+           "forward", "forward_hidden", "init_caches", "layer_kinds",
+           "layer_plan", "loss_fn", "n_params", "param_defs", "prefill"]

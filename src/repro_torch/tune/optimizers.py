@@ -45,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import operator
+import os
 from typing import Callable
 
 import numpy as np
@@ -338,6 +339,10 @@ def deterministic(device: torch.device):
     if device.type != "cuda":
         yield
         return
+    # cuBLAS's products are deterministic only with this workspace
+    # setting, which torch checks under the mode; it has to be in place
+    # before the process's first product to size the workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch.utils.deterministic as det
     prev = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()

@@ -224,3 +224,88 @@ def forward_match(arch):
     near(got.numpy(), want, "forward logits")
     near(aux.numpy(), want_aux, "aux loss")
     assert (float(aux) > 0) == (cfg_p.moe is not None)
+
+
+# ---------------------------------------------------------------------------
+# loss and gradients against the reference's (tests/test_torch_train*.py)
+# ---------------------------------------------------------------------------
+
+#: whisper-base's smoke gradients are ill-conditioned (embedding and
+#: position gradients ~77 beside first-layer query gradients ~0.2): the
+#: reference's own float32 gradient is 2.0e-3 of a leaf's scale from the
+#: float64 one (the port's, on the same weights), the port's float32
+#: 5.5e-4.  Every other smoke config is within 2.3e-4 of the reference.
+GRAD_REL = {"whisper-base": 3e-3}
+
+
+def grads_close(got, want, what, rel: float = 5e-4):
+    """Each gradient leaf within ``rel`` of the larger of its own largest
+    magnitude and 1e-3 of the tree's largest (a leaf whose gradient is
+    zero in exact arithmetic, such as a key bias under softmax, is
+    rounding noise on both sides)."""
+    top = max(float(w.abs().max()) for w in want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        err = float((g - w).abs().max())
+        assert err <= rel * scale, (what, i, err, scale)
+
+
+def loss_and_grads_match(arch: str):
+    """The arch's smoke config (float32, the reference's params from seed
+    0 with the zero/one leaves perturbed, carried across) through
+    ``train.step.model_loss`` on both sides: a batch of 2 x 12 tokens
+    with -1 labels (and stub frames or patches, the patch positions'
+    labels -1); the total loss, the nll and the MoE aux within 1e-5
+    relative, every gradient leaf within ``grads_close`` (at
+    ``GRAD_REL`` where it says so).  recurrentgemma
+    runs the reference's unrolled layers (``UNROLLED``)."""
+    import jax
+    import torch
+    from repro.configs import get_smoke_config as smoke_R
+    from repro.models import encdec as E_R
+    from repro.models import transformer as T_R
+    from repro.models import vlm as V_R
+    from repro.train.step import model_loss as model_loss_R
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim._tree import leaves, unflatten
+    from repro_torch.train.step import model_loss
+    over = dict(scan_layers=False) if arch in UNROLLED else {}
+    cfg_r = dataclasses.replace(smoke_R(arch), **over)
+    cfg_p = dataclasses.replace(get_smoke_config(arch), **over)
+    mod = E_R if cfg_r.encdec else V_R if cfg_r.vlm else T_R
+    params = perturbed(mod.param_defs(cfg_r), 0)
+    rng = np.random.RandomState(1)
+    b, t = 2, 12
+    toks = rng.randint(2, cfg_r.vocab, (b, t)).astype(np.int32)
+    labels = np.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    labels[0, 3] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg_r.encdec is not None:
+        batch["frames"] = rng.randn(b, cfg_r.encdec.enc_seq,
+                                    cfg_r.d_model).astype(np.float32)
+    if cfg_r.vlm is not None:
+        p = cfg_r.vlm.n_patches
+        batch["patches"] = rng.randn(b, p, cfg_r.vlm.vit_dim).astype(
+            np.float32)
+        batch["labels"] = np.concatenate(
+            [np.full((b, p), -1, np.int32), labels], 1)
+    loss_r = model_loss_R(cfg_r)
+    (tot_r, (nll_r, aux_r)), g = jax.jit(jax.value_and_grad(
+        lambda q: loss_r(q, batch), has_aux=True))(params)
+    params_p = convert.params_from_numpy(cfg_p, params, device="cpu")
+    flat = [x.requires_grad_() for x in leaves(params_p)]
+    tot_p, (nll_p, aux_p) = model_loss(cfg_p)(
+        unflatten(params_p, flat),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(tot_p, flat)
+    for what, got, want in (("loss", tot_p, tot_r), ("nll", nll_p, nll_r),
+                            ("aux", aux_p, aux_r)):
+        assert abs(float(got.detach()) - float(want)) <= \
+            1e-5 * max(abs(float(want)), 1e-3), (arch, what)
+    want = leaves(convert.params_from_numpy(
+        cfg_p, jax.tree.map(np.asarray, g), device="cpu"))
+    assert len(want) == len(grads)
+    grads_close(grads, want, arch, GRAD_REL.get(arch, 5e-4))
+    return float(aux_r)

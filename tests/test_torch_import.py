@@ -37,7 +37,12 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.models.rglru, repro_torch.models.scan, "
             "repro_torch.models.encdec, repro_torch.models.vlm, "
-            "repro_torch.configs.common; "
+            "repro_torch.configs.common, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.compress, "
+            "repro_torch.optim.schedule, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.train, "
+            "repro_torch.train.step, repro_torch.train.loop, "
+            "repro_torch.launch.train; "
             "from repro_torch.serve import make_serve_step, whatif; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -47,16 +52,18 @@ def test_import_loads_neither_jax_nor_reference():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("pkg", ["serve", "models"])
+@pytest.mark.parametrize("pkg", ["serve", "models", "optim", "train",
+                                 "data"])
 def test_package_names_match_reference(pkg):
-    """``repro_torch.<pkg>`` binds the reference's names; ``models``
-    binds all of them but the reference's mesh helpers (ROADMAP Queue
-    1)."""
+    """``repro_torch.<pkg>`` binds the reference's names; ``models``,
+    ``optim`` and ``train`` bind all of them but the reference's mesh
+    helpers (ROADMAP Queue 1)."""
     import importlib
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
-    unported = {"models": {"abstract_params", "param_specs"}}.get(
-        pkg, set())
+    unported = {"models": {"abstract_params", "param_specs"},
+                "optim": {"opt_state_specs"},
+                "train": {"train_state_specs"}}.get(pkg, set())
     assert set(port.__all__) == set(ref.__all__) - unported
     if pkg == "serve":
         assert port.__all__ == ref.__all__
