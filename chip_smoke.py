@@ -199,7 +199,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
                process, its step-20 checkpoint bitwise the uninterrupted
                run's; (e) a loss with ``use_pallas=True`` under autograd
                raises (no launch), without autograd it equals the plain
-               path's, and the plain path gives every leaf a gradient.
+               path's, and the plain path gives every leaf a gradient;
+ 21. sharded_sweep — the distribution substrate (``repro_torch.dist``):
+               (a) a child process with a world of one on the card runs
+               the dc sweep (36 runs, 3000 steps) through
+               ``Sweep.run(mesh=sweep_mesh(1))`` on the flow and mega
+               tiers, bitwise one launch of it timed there and phase 6's
+               result, then the mega tier in a world of one over NCCL
+               (the gather on the card), bitwise phase 6's result too;
+               (b) two child processes share the card over gloo
+               (both on cuda:0), 18 runs a rank, flow and mega, bitwise
+               phase 6's result in both ranks, then the reference's
+               two-device case (the paper incast, 3 runs padded to 4)
+               bitwise its one launch; each prints its wall time against
+               one launch, the gather's seconds, peak memory and launches
+               a rank; (c) ``pipeline_apply`` of four 1024 x 1024 stages
+               over 8 microbatches of 64 rows, bitwise the stages back to
+               back on the card and within 1e-5 of the CPU; (d) the
+               starcoder2 smoke config's float32 train state restored
+               through ``train_loop(state_shardings=)`` onto
+               ``logical_sharding`` of ``train_state_specs`` on
+               ``make_host_mesh()``: placements as asked, values, the next
+               step's loss and state bitwise the unsharded resume's.  (c)
+               and (d) run in a child beside the tune phase's wait; (a)
+               and (b) in children that start beside it and wait on
+               stdin to touch the card, then run, (b) after (a), while
+               the tune phase waits on its last child (the gradient
+               autotune, one host-bound process), before phase 20 (a).
 Kernel launch counts are zeroed just before each path's run and read
 just after; every path asserts each of its kernels' exact count, and
 flash_attention's exact count on each route.
@@ -4133,16 +4159,18 @@ def _profile_soft(ev, theta, tau: float) -> dict:
     return rec
 
 
-def _child(fn: str, *args) -> "subprocess.Popen":
+def _child(fn: str, *args, stdin: bool = False) -> "subprocess.Popen":
     """Start ``chip_smoke.<fn>(*args)`` in a child process; its last
     stdout line is the JSON of what it returns (``_join``).  The soft
     rollout is host-bound (one core, the card ~96% idle), so the tune
-    phase runs its long calls side by side in processes of their own."""
+    phase runs its long calls side by side in processes of their own.
+    ``stdin``: a pipe the parent may write to (phase 21's go)."""
     code = (f"import json, sys; sys.path[:0] = [{SRC!r}, {HERE!r}]; "
             f"import chip_smoke as c; "
             f"print(json.dumps(c.{fn}(*json.loads(sys.argv[1]))))")
     return subprocess.Popen([sys.executable, "-c", code, json.dumps(args)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            stdin=subprocess.PIPE if stdin else None,
                             text=True, cwd=HERE)
 
 
@@ -4220,7 +4248,7 @@ def tune_grad_autotune() -> dict:
             "trace_values": gr.trace.value.tolist(), **gr.to_record()}
 
 
-def phase_tune(device, beside=None) -> dict:
+def phase_tune(device, beside=None, last=None) -> dict:
     """The autotuning path: the soft model's temperature-0 identity and
     its card-vs-CPU agreement, ``value_and_grad`` through the kernels'
     autograd rules (bitwise repeatable, against the CPU, launches, ms a
@@ -4231,13 +4259,14 @@ def phase_tune(device, beside=None) -> dict:
     processes beside the rest (the last two started after the timed
     call, so that call has the card alone).  ``beside()``, if given, runs
     in this process while those children finish; what it returns is
-    ``rec["beside"]``."""
+    ``rec["beside"]``.  ``last()``, if given, runs once only the gradient
+    autotune child is left; what it returns is ``rec["last"]``."""
     from repro_torch.core import SWEEP_EXEC_CACHE
     t_phase = time.perf_counter()
     rec = {"phase": "tune"}
     children = [_child("tune_cpu_refs")]
     try:
-        _phase_tune(device, rec, children, beside)
+        _phase_tune(device, rec, children, beside, last)
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -4249,7 +4278,8 @@ def phase_tune(device, beside=None) -> dict:
     return rec
 
 
-def _phase_tune(device, rec: dict, children: list, beside=None) -> None:
+def _phase_tune(device, rec: dict, children: list, beside=None,
+                last=None) -> None:
     import tempfile
     import numpy as np
     import torch
@@ -4425,6 +4455,8 @@ def _phase_tune(device, rec: dict, children: list, beside=None) -> None:
           "bitwise_equal_twice": vag["bitwise_equal_twice"],
           "second_call_s_in_a_child": again["seconds"]})
     assert vag["bitwise_equal_twice"], (v1, again["value"])
+    if last is not None:           # the gradient child is host-bound
+        rec["last"] = last()
 
     # 7. autotune by gradient (the child on the card)
     rec["grad"] = _join(children[1], "autotune(method='grad')")
@@ -4967,6 +4999,442 @@ def phase_train(device, checks: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the sharded Sweep, pipeline_apply and the elastic restore
+# ---------------------------------------------------------------------------
+
+#: (c): examples/paced_collectives.py's layer width, four stages of
+#: tanh(x @ W + b) over 8 microbatches of 64 rows, held to the CPU within
+#: PIPE_CPU_RTOL of the largest output
+PIPE_STAGES, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS = 4, 1024, 8, 64
+PIPE_CPU_RTOL = 1e-5
+#: (b): the reference's two-device case (tests/test_sharded_sweep.py):
+#: the paper incast, 3 schemes x roll 0, 300 steps, 3 runs padded to 4
+SHARD_PAPER_STEPS = 300
+#: (d): the starcoder2 smoke config's float32 state, saved at this step
+#: and resumed one step further, plainly and onto the host mesh
+ELASTIC_SAVE_AT = 3
+
+
+def _digests(res) -> dict:
+    """sha256 of each trace field and final-state leaf of a result (its
+    dtype and shape first): two results are bitwise equal exactly when
+    every digest is."""
+    import hashlib
+    import numpy as np
+    out = {}
+    for name, x in _leaves(res):
+        x = np.ascontiguousarray(x)
+        h = hashlib.sha256(f"{x.dtype}{x.shape}".encode())
+        h.update(x.tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def _differing(got: dict, want: dict) -> list:
+    return sorted(k for k in set(got) | set(want)
+                  if got.get(k) != want.get(k))
+
+
+def _time_gathers() -> list:
+    """Wrap the sharded Sweep's gather so each call's seconds (after the
+    card has finished the run it gathers) land in the returned list."""
+    import torch
+    from repro_torch.core import experiments as E
+    inner, spent = E._gather_runs, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    E._gather_runs = timed
+    return spent
+
+
+def _sharded_run(sweep, mesh, kw: dict, gathers: list, barrier=None):
+    """One timed ``Sweep.run(mesh=)`` of the dc depth after a warm-up at
+    the check depth (which builds this rank's window entry): wall s,
+    gather s, peak memory, launches, the result's digests."""
+    import torch
+    sweep.run(DC_CHECK_STEPS, trace_every=100, mesh=mesh, **kw)
+    if barrier is not None:
+        barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gathers.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sweep.run(DC_STEPS, trace_every=100, mesh=mesh, **kw)
+    wall = time.perf_counter() - t0
+    return {"sharded_s": wall, "gather_s": sum(gathers),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts()}, _digests(res)
+
+
+def sharded_world_of_one(want: dict) -> dict:
+    """Phase 21 (a), a child process: after the parent's go on stdin,
+    the dc sweep through ``Sweep.run(mesh=sweep_mesh(1))`` on the card,
+    flow and mega tiers, against one launch of each timed in the same
+    process and against the dc phase's result (``want``, its digests);
+    then the mega tier once more in a world of one over NCCL, where the
+    gather packs and all-gathers its buffer on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sweep_mesh
+    gathers = _time_gathers()
+    sweep = _dc_sweep()
+    sys.stdin.readline()            # the card to ourselves from here
+    device = _card()
+    mesh = sweep_mesh(1)
+    rec = {"world": dist.get_world_size(), "mesh": str(mesh),
+           "mesh_device_type": mesh.device_type, "runs": len(sweep.points)}
+    try:
+        for tier, kw in (("flow", {}), ("mega", MEGA)):
+            sweep.run(DC_CHECK_STEPS, trace_every=100, device=device, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = sweep.run(DC_STEPS, trace_every=100, device=device, **kw)
+            one_s = time.perf_counter() - t0
+            one = _digests(one)
+            r, got = _sharded_run(sweep, mesh, kw, gathers)
+            r.update({"one_launch_s": one_s,
+                      "overhead": r["sharded_s"] / one_s - 1,
+                      "bitwise_equal_one_launch": got == one,
+                      "bitwise_equal_dc_phase": got == want,
+                      "differing": _differing(got, want)[:8]})
+            rec[tier] = r
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = sweep_mesh(1)
+        r, got = _sharded_run(sweep, mesh, MEGA, gathers)
+        r.update({"backend": dist.get_backend(mesh.get_group(0)),
+                  "bitwise_equal_dc_phase": got == want,
+                  "differing": _differing(got, want)[:8]})
+        rec["nccl_mega"] = r
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def _shard_paper_sweep():
+    from repro_torch.core import CCScheme, PAPER_CONFIG, ScenarioSpec, Sweep
+    return Sweep.grid(
+        configs={s.name: PAPER_CONFIG.replace(scheme=s) for s in CCScheme},
+        scenarios={"hol": ScenarioSpec.paper_incast(roll=0)})
+
+
+def sharded_rank(rank: int, port: int, want: dict) -> dict:
+    """Phase 21 (b), one of two child processes sharing the card over
+    gloo: after the parent's go on stdin, the dc sweep through a mesh of
+    two ranks (18 runs a rank), flow and mega tiers, against the dc
+    phase's result; then the reference's two-device case (the paper
+    incast, 3 runs padded to 4) against its one launch on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sweep_mesh
+    gathers = _time_gathers()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        sweep = _dc_sweep()
+        sys.stdin.readline()        # the card to ourselves from here
+        device = _card()
+        mesh = sweep_mesh()
+        rec = {"rank": rank, "world": dist.get_world_size(),
+               "mesh": str(mesh), "device": str(torch.cuda.current_device()),
+               "runs": len(sweep.points)}
+        for tier, kw in (("flow", {}), ("mega", MEGA)):
+            r, got = _sharded_run(sweep, mesh, kw, gathers, dist.barrier)
+            r.update({"bitwise_equal_dc_phase": got == want,
+                      "differing": _differing(got, want)[:8]})
+            rec[tier] = r
+        paper = _shard_paper_sweep()
+        one = _digests(paper.run(SHARD_PAPER_STEPS, device=device))
+        got = _digests(paper.run(SHARD_PAPER_STEPS, mesh=mesh))
+        rec["paper"] = {"runs": len(paper.points), "padded_to": 4,
+                        "steps": SHARD_PAPER_STEPS,
+                        "bitwise_equal_one_launch": got == one,
+                        "differing": _differing(got, one)[:8]}
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def _pipeline_on_card(device) -> dict:
+    """(c) ``pipeline_apply`` of ``PIPE_STAGES`` stages on the card:
+    bitwise the stages back to back there, within ``PIPE_CPU_RTOL`` of
+    the CPU (relative to the largest output)."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1,), ("pod",))
+    g = np.random.default_rng(0)
+    S, D = PIPE_STAGES, PIPE_WIDTH
+    host = {"w": torch.from_numpy((g.standard_normal((S, D, D))
+                                   / np.sqrt(D)).astype(np.float32)),
+            "b": torch.from_numpy((0.1 * g.standard_normal((S, D)))
+                                  .astype(np.float32))}
+    xs = torch.from_numpy(g.standard_normal(
+        (PIPE_MICRO, PIPE_ROWS, D)).astype(np.float32))
+    card = {k: v.to(device) for k, v in host.items()}
+    xc = xs.to(device)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    pipeline_apply(stage, card, xc, mesh, n_stages=S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_apply(stage, card, xc, mesh, n_stages=S)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    seq = []
+    for x in xc.unbind(0):
+        for s in range(S):
+            x = stage({k: v[s] for k, v in card.items()}, x)
+        seq.append(x)
+    cpu = pipeline_apply(stage, host, xs, mesh, n_stages=S)
+    rel = float((out.cpu() - cpu).abs().max() / cpu.abs().max())
+    return {"stages": S, "width": D, "microbatches": PIPE_MICRO,
+            "rows": PIPE_ROWS, "mesh": str(mesh), "ms": ms,
+            "bitwise_equal_back_to_back": bool(torch.equal(
+                out, torch.stack(seq))),
+            "max_rel_err_cpu": rel, "rtol": PIPE_CPU_RTOL}
+
+
+def _placed(tree, shardings, out: list) -> list:
+    """(leaf, its NamedSharding) pairs of a state and its shardings."""
+    from repro_torch.dist.sharding import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        out.append((tree, shardings))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _placed(tree[k], shardings[k], out)
+    elif shardings is not None:
+        for a, b in zip(tree, shardings):
+            _placed(a, b, out)
+    return out
+
+
+def _elastic_restore(device, tmp: str) -> dict:
+    """(d) the starcoder2 smoke config's float32 train state saved at
+    step ``ELASTIC_SAVE_AT``, restored onto ``logical_sharding`` of
+    ``train_state_specs`` on ``make_host_mesh()`` (placements, values)
+    and resumed through ``train_loop(state_shardings=)`` one step: its
+    loss and state bitwise the unsharded resume's."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.dist.sharding import tree_shardings
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.models import param_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim._tree import leaves
+    from repro_torch.train import train_state_specs
+    from repro_torch.train import step as S
+    from repro_torch.train.loop import NT_REGISTRY, TrainLoopConfig, \
+        train_loop
+    cfg = get_smoke_config(TRAIN_ARCH)
+    defs = T.param_defs(cfg)
+    sc = S.StepConfig(opt=AdamWConfig(lr=3e-3), warmup_steps=5,
+                      total_steps=100)
+    state = S.init_train_state(cfg, init_params(defs, 0, torch.float32,
+                                                device), sc)
+    step = S.make_train_step(cfg, sc)
+    data = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                      kind="zipf")
+    n = ELASTIC_SAVE_AT
+    train_loop(step, state, data, TrainLoopConfig(
+        total_steps=n, ckpt_dir=tmp, ckpt_every=n))
+    ref = train_loop(step, state, data, TrainLoopConfig(
+        total_steps=n + 1, ckpt_dir=tmp, ckpt_every=100))
+    mesh = make_host_mesh()
+    sh = tree_shardings(train_state_specs(cfg, param_specs(defs), sc),
+                        state, mesh)
+    placed, _ = load_checkpoint(tmp, shardings=sh._replace(rng=None),
+                                nt_registry=NT_REGISTRY)
+    plain, _ = load_checkpoint(tmp, device=device, nt_registry=NT_REGISTRY)
+    pairs = _placed(placed._replace(rng=None), sh._replace(rng=None), [])
+    placements = all(isinstance(x, DTensor) and x.placements == s.placements
+                     for x, s in pairs)
+    values = all(torch.equal(x.full_tensor(), y) for x, y in zip(
+        leaves(placed._replace(rng=None)), leaves(plain._replace(rng=None))))
+    t0 = time.perf_counter()
+    out = train_loop(step, state, data, TrainLoopConfig(
+        total_steps=n + 1, ckpt_dir=tmp, ckpt_every=100),
+        state_shardings=sh)
+    step_s = time.perf_counter() - t0
+    state_bitwise = all(
+        torch.equal(x.full_tensor() if isinstance(x, DTensor) else x, y)
+        for x, y in zip(leaves(out["state"]), leaves(ref["state"])))
+    return {"arch": cfg.name, "mesh": describe(mesh),
+            "leaves": len(pairs), "saved_at": n,
+            "placements_as_asked": placements,
+            "shard_placements": sorted({str(s.placements) for _, s in pairs}),
+            "values_bitwise": values,
+            "loss_sharded": out["losses"].tolist(),
+            "loss_unsharded": ref["losses"].tolist(),
+            "loss_bitwise": bool(np.array_equal(out["losses"],
+                                                ref["losses"])),
+            "state_bitwise": state_bitwise,
+            "resume_s": step_s}
+
+
+def sharded_checks() -> dict:
+    """Phase 21 (c) and (d), a child process with a world of one on the
+    card (deterministic algorithms for (d))."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.tune.optimizers import deterministic
+    device = _card()
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        rec["pipeline"] = _pipeline_on_card(device)
+        rec["pipeline"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, deterministic(device):
+            rec["elastic"] = _elastic_restore(device, tmp)
+        rec["elastic"]["seconds"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return rec
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_children(want: dict) -> list:
+    """Phase 21's (a) child and (b)'s two ranks, started beside the tune
+    phase's checks: each imports, builds the dc sweep (and (b) joins its
+    process group) on the host, then waits for a go on stdin before it
+    touches the card (``sharded_runs``)."""
+    port = _free_port()
+    return [_child("sharded_world_of_one", want, stdin=True)] + [
+        _child("sharded_rank", r, port, want, stdin=True) for r in (0, 1)]
+
+
+def _go(*procs) -> None:
+    for proc in procs:
+        try:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        except BrokenPipeError:         # it failed: _join says how
+            pass
+
+
+def _stop(procs) -> None:
+    """Kill whichever of ``procs`` still runs."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def sharded_runs(children: list) -> dict:
+    """Phase 21 (a), then (b) (``children``, from ``sharded_children``),
+    each gated bitwise: run while the tune phase waits on its gradient
+    autotune child (one host-bound process; the card ~96% idle).
+    Returns the record with each rank's launches."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()        # the parent's pool, for the children
+    one, *ranks = children
+    _go(one)
+    a = _join(one, "sharded_world_of_one")
+    _go(*ranks)
+    b = [_join(p, f"sharded_rank {r}") for r, p in enumerate(ranks)]
+    for tier, n_cc, n_block in (("flow", DC_STEPS, 0),
+                                ("mega", 0, DC_STEPS // 100)):
+        emit({"phase": "sharded_sweep", "case": f"world_of_one_{tier}",
+              **a[tier]})
+        for r in b:
+            r[tier]["overhead"] = r[tier]["sharded_s"] / \
+                a[tier]["one_launch_s"] - 1
+            emit({"phase": "sharded_sweep", "case": f"rank{r['rank']}_{tier}",
+                  "one_launch_s": a[tier]["one_launch_s"], **r[tier]})
+        assert a[tier]["bitwise_equal_one_launch"], (tier, a[tier])
+        assert a[tier]["bitwise_equal_dc_phase"], (tier, a[tier])
+        _expect(a[tier]["launches"], f"sharded world of one {tier}",
+                cc=n_cc, block=n_block)
+        for r in b:
+            assert r[tier]["bitwise_equal_dc_phase"], (r["rank"], tier,
+                                                        r[tier])
+            _expect(r[tier]["launches"], f"sharded rank {r['rank']} {tier}",
+                    cc=n_cc, block=n_block)
+    n = a["nccl_mega"]
+    n["overhead"] = n["sharded_s"] / a["mega"]["one_launch_s"] - 1
+    emit({"phase": "sharded_sweep", "case": "world_of_one_nccl_mega",
+          "one_launch_s": a["mega"]["one_launch_s"], **n})
+    assert n["backend"] == "nccl" and n["bitwise_equal_dc_phase"], n
+    _expect(n["launches"], "sharded world of one over nccl, mega",
+            block=DC_STEPS // 100)
+    for r in b:
+        emit({"phase": "sharded_sweep", "case": f"rank{r['rank']}_paper",
+              **r["paper"]})
+        assert r["paper"]["bitwise_equal_one_launch"], r["paper"]
+    return {"world_of_one": a, "two_ranks": b,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_sharded_sweep(checks: dict, runs: dict) -> dict:
+    """Phase 21: (a) and (b) (``runs``, from ``sharded_runs``, gated
+    there, during the tune phase's wait), (c) and (d) (``checks``, a
+    child beside the tune phase) gated here."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "sharded_sweep", "nvidia_smi": nvidia_smi(), **runs}
+    rec.update(checks)
+    emit({"phase": "sharded_sweep", "case": "pipeline", **checks["pipeline"]})
+    emit({"phase": "sharded_sweep", "case": "elastic_restore",
+          **checks["elastic"]})
+    p, e = checks["pipeline"], checks["elastic"]
+    assert p["bitwise_equal_back_to_back"], p
+    assert p["max_rel_err_cpu"] <= PIPE_CPU_RTOL, p
+    assert e["placements_as_asked"] and e["values_bitwise"], e
+    assert e["loss_bitwise"] and e["state_bitwise"], e
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sharded_sweep", "seconds": rec["seconds"],
+          "runs_during_tune_wait_s": runs["seconds"],
+          "checks_beside_tune_s": checks["seconds"],
+          "nvidia_smi": rec["nvidia_smi"]})
+    return rec
+
+
+def _beside_tune(device, started: list, want: dict) -> dict:
+    """What runs while the tune phase waits on its host-bound children:
+    phase 20's checks (b)-(e) here, phase 21's (c) and (d) in a child;
+    phase 21's (a) and (b) children start here (into ``started``, to
+    digests ``want``) and do their host work."""
+    t0 = time.perf_counter()
+    started.extend(sharded_children(want))
+    proc = _child("sharded_checks")
+    try:
+        train = train_checks(device)
+        sharded = _join(proc, "sharded_checks")
+    finally:
+        _stop([proc])
+    sharded["seconds"] = time.perf_counter() - t0
+    return {"train": train, "sharded": sharded}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5022,7 +5490,7 @@ def _paths_launches(rows: list, paths: dict) -> None:
 
 
 def _phases(device, pacer_cpu: dict) -> list:
-    """Phases 3-20; returns the kernels line's rows.  The pacer's CPU
+    """Phases 3-21; returns the kernels line's rows.  The pacer's CPU
     schedules (``pacer_cpu``, a process each) run beside the what-if and
     fleet phases, after the phases that time eager host work."""
     kern = phase_kernels(device)
@@ -5030,6 +5498,7 @@ def _phases(device, pacer_cpu: dict) -> list:
     phase_paper(device)
     phase_golden(device)
     dc = phase_dc(device)
+    dc_digests = _digests(dc["result"])     # phase 21's reference
     for name, row in kern.items():
         row["launches"] = dc["launches"][name]
     _, mstep, mblock = phase_mega(device, dc)
@@ -5081,7 +5550,13 @@ def _phases(device, pacer_cpu: dict) -> list:
                      attn["flash_attention_cuda_core"],
                      attn["decode_attention"]], paths)
     phase_card_vs_cpu(device)
-    tune = phase_tune(device, beside=lambda: train_checks(device))
+    children = []      # phase 21's (a) and (b), started beside the tune
+    try:
+        tune = phase_tune(
+            device, beside=lambda: _beside_tune(device, children, dc_digests),
+            last=lambda: sharded_runs(children))
+    finally:
+        _stop(children)
     for name in ("gen_np_step", "rp_step", "segment_reduce"):
         row = seg if name == "segment_reduce" else kern[name]
         row["tune_launches"] = \
@@ -5090,11 +5565,20 @@ def _phases(device, pacer_cpu: dict) -> list:
                                   attn["flash_attention"],
                                   attn["flash_attention_cuda_core"],
                                   attn["decode_attention"]]
-    train = phase_train(device, tune["beside"])
+    train = phase_train(device, tune["beside"]["train"])
+    sharded = phase_sharded_sweep(tune["beside"]["sharded"], tune["last"])
     launched = train["full_width"]["launches"]
     for row in rows:       # the training path launches none of them
         row["train_launches"] = launched[row["name"].replace(
             "_cuda_core", "")]
+    paths = {f"sharded_dc_world_of_one_{t}":
+             sharded["world_of_one"][t]["launches"] for t in ("flow", "mega")}
+    paths["sharded_dc_world_of_one_nccl_mega"] = \
+        sharded["world_of_one"]["nccl_mega"]["launches"]
+    for r in sharded["two_ranks"]:
+        for t in ("flow", "mega"):
+            paths[f"sharded_dc_rank{r['rank']}_{t}"] = r[t]["launches"]
+    _paths_launches(rows, paths)
     return rows
 
 

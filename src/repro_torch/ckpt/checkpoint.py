@@ -11,9 +11,10 @@ Properties required at 1000-node scale and tested in tests/test_ckpt.py:
   * **async**: `CheckpointManager.save_async` runs serialisation off the
     step loop (straggler-free saves),
   * **portable**: arrays are saved densely as numpy (a tensor leaf is
-    copied to the host first), in the reference's exact layout, so a
-    checkpoint either package wrote loads in the other; a load restores
-    numpy arrays, or tensors on a stated ``device``,
+    copied to the host first; a DTensor leaf is gathered whole), in the
+    reference's exact layout, so a checkpoint either package wrote loads
+    in the other; a load restores numpy arrays, tensors on a stated
+    ``device``, or DTensors on stated shardings (elastic restore),
   * **exact resume**: the data-pipeline step and RNG state live in the
     manifest, so training resumes bit-identically.
 """
@@ -32,8 +33,13 @@ import torch
 
 
 def _host(v) -> np.ndarray:
-    """A leaf as a numpy array (tensors leave the device first)."""
+    """A leaf as a numpy array (tensors leave the device first; a
+    DTensor is gathered whole, a collective every rank of its mesh
+    calls)."""
     if isinstance(v, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
         return v.detach().cpu().numpy()
     return np.asarray(v)
 
@@ -104,6 +110,43 @@ def _rebuild(template, flat, prefix="", nt_registry=None):
     seq = [_rebuild(v, flat, f"{prefix}{i}/", nt_registry)
            for i, v in enumerate(template["items"])]
     return seq if k == "list" else tuple(seq)
+
+
+def _distribute(tree, shardings, where: str = "tree"):
+    """Each numpy leaf of ``tree`` as a DTensor on the ``NamedSharding``
+    (``repro_torch.dist.sharding``) at its place in ``shardings``, a tree
+    of the same structure (TypeError where it is not); a None sharding
+    leaves its leaf a CPU tensor."""
+    from ..dist.sharding import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        from torch.distributed.tensor import distribute_tensor
+        # every rank reads the same file: its local data is the value,
+        # so nothing is broadcast or scattered (src_data_rank=None)
+        return distribute_tensor(torch.from_numpy(np.asarray(tree)),
+                                 shardings.mesh, shardings.placements,
+                                 src_data_rank=None)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        get = (shardings.get if isinstance(shardings, dict)
+               else lambda k: getattr(shardings, k, None))
+        return {k: _distribute(v, get(k), f"{where}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if shardings is None:
+            shardings = [None] * len(tree)
+        if len(shardings) != len(tree):
+            raise TypeError(f"shardings at {where} hold {len(shardings)} "
+                             f"entries for {len(tree)}")
+        out = [_distribute(v, s, f"{where}/{i}")
+               for i, (v, s) in enumerate(zip(tree, shardings))]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return type(tree)(out)
+    if shardings is None:
+        return torch.from_numpy(np.asarray(tree))
+    raise TypeError(f"shardings at {where}: {type(shardings).__name__} "
+                     f"is not a NamedSharding")
 
 
 def _fsync_dir(path: str) -> None:
@@ -178,7 +221,8 @@ def committed_steps(directory: str) -> list[int]:
     return sorted(steps)
 
 
-def _load_step(directory: str, step: int, device, nt_registry):
+def _load_step(directory: str, step: int, device, nt_registry,
+               shardings=None):
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -187,14 +231,21 @@ def _load_step(directory: str, step: int, device, nt_registry):
     tree = _rebuild(manifest["template"], flat, nt_registry=nt_registry)
     if device is not None:
         tree = _map_leaves(lambda v: torch.from_numpy(v).to(device), tree)
+    elif shardings is not None:
+        tree = _distribute(tree, shardings)
     return tree, manifest["extra"]
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None,
-                    device: Any = None, nt_registry=None):
-    """Load (tree, extra): leaves are numpy arrays, or tensors on
-    ``device`` when one is given (where the reference ``device_put``s
-    each leaf onto a sharding).
+                    device: Any = None, nt_registry=None, *,
+                    shardings: Any = None):
+    """Load (tree, extra): leaves are numpy arrays, tensors on ``device``
+    when one is given, or, with ``shardings`` (a matching tree of
+    ``repro_torch.dist.sharding.NamedSharding``), DTensors
+    ``distribute_tensor``-ed onto them (elastic restore: the reference
+    ``device_put``s each leaf onto its sharding).  A None sharding leaves
+    its leaf a CPU tensor.  ``device`` and ``shardings`` exclude each
+    other.
 
     With ``step=None``, walks the committed steps newest-first and
     skips torn/partial checkpoints (unreadable manifest or arrays —
@@ -203,17 +254,20 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
     newest checkpoint that actually loads.  An explicit ``step`` must
     be committed (``.done`` marker present) and intact.
     """
+    if device is not None and shardings is not None:
+        raise ValueError("load_checkpoint: pass device= or shardings=, "
+                         "not both")
     if step is not None:
         path = os.path.join(directory, f"step_{step:09d}")
         if not os.path.exists(path + ".done"):
             raise FileNotFoundError(
                 f"checkpoint step {step} in {directory} is missing or "
                 f"uncommitted (no .done marker — torn write?)")
-        return _load_step(directory, step, device, nt_registry)
+        return _load_step(directory, step, device, nt_registry, shardings)
     errors = []
     for s in reversed(committed_steps(directory)):
         try:
-            return _load_step(directory, s, device, nt_registry)
+            return _load_step(directory, s, device, nt_registry, shardings)
         except (OSError, ValueError, KeyError, EOFError,
                 json.JSONDecodeError, zipfile.BadZipFile) as e:
             errors.append(f"step {s}: {e!r}")   # torn/corrupt: try older

@@ -16,6 +16,11 @@
     ``WindowExecutable`` per batch structure, on the card a CUDA graph
     of one trace window over tensors the entry owns, replayed once a
     window (``Sweep.prepare`` stays the eager API).
+  * ``Sweep.run(mesh=...)`` — the run axis cut over the ranks of a
+    ``torch.distributed.device_mesh.DeviceMesh`` (one process a rank,
+    e.g. ``repro_torch.dist.sweep_mesh()``): each rank advances its slice
+    of the padded batch on its own device and the traces are gathered,
+    bitwise the one-launch result.
 
     from repro_torch.core import CCScheme, PAPER_CONFIG
     from repro_torch.core.experiments import ScenarioSpec, Sweep
@@ -46,7 +51,7 @@ from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
                     _step_body, check_routing_paths, clamp_dense_rows,
                     delay_depth, dense_reduce_rows, init_state, is_soft,
-                    kernel_tier, reduce_plan, refuse_unported,
+                    kernel_tier, pool_counts, reduce_plan, refuse_unported,
                     resolve_device, scenario_arrays, step_params, _upload)
 from .params import CCConfig, CCSpec
 from .routing import PAD, route_hops
@@ -778,14 +783,74 @@ def _sweep_executable(static: WindowStatic, inputs: WindowInputs):
             entry.unlock()
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "Sweep.run(mesh=...) is not supported by the port: on one card "
-            "there is no run axis to shard across devices. Run a sweep too "
-            "large for one launch through repro_torch.fleet.run_fleet "
-            "(shards, streamed traces, resume), as the reference's README "
-            "advises; see ROADMAP.md, Queue 1 (dist/sharding)")
+def _mesh_shard(mesh) -> tuple[int, int]:
+    """(this rank's shard of the run axis, the shard count): the run axis
+    is cut over every dim of ``mesh``, row-major, as the reference's
+    ``shard_map`` over ``P(mesh.axis_names)`` cuts it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed.device_mesh.DeviceMesh "
+            f"(e.g. repro_torch.dist.sweep_mesh()), not "
+            f"{type(mesh).__name__}")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        import torch.distributed as dist
+        raise ValueError(f"rank {dist.get_rank()} is outside the mesh "
+                         f"{mesh}: run a sharded sweep on its ranks only")
+    return (int(np.ravel_multi_index(coord, tuple(mesh.shape))),
+            int(mesh.size()))
+
+
+def _sweep_device(mesh, device) -> torch.device:
+    """The device a run advances on: ``device`` as ``resolve_device``
+    reads it, or with a mesh and no ``device`` this rank's device of the
+    mesh's type (its current card, or the CPU)."""
+    if mesh is None:
+        return resolve_device(device)
+    _mesh_shard(mesh)                         # a DeviceMesh holding us
+    dev = resolve_device(mesh.device_type if device is None else device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"device {dev} is not of the mesh's device type "
+                         f"{mesh.device_type!r}")
+    return dev
+
+
+def _gather_runs(mesh, final: FluidState, traces: TraceSample):
+    """Every rank's run slice of ``final`` ([n, ...]) and ``traces`` ([T,
+    n, ...]) concatenated in mesh order: one all-gather a mesh dim, last
+    dim first (row-major), of one byte buffer holding every leaf, runs
+    leading, one leaf after another.  Over NCCL the buffer is on the
+    card; otherwise (gloo) each leaf is copied straight into a host
+    buffer, so the card holds no second copy of the result.  Returns
+    the whole batch's (final, traces) as tensors."""
+    import torch.distributed as dist
+    runs = []
+    _tree_map(runs.append, final)
+    for x in traces:
+        runs.append(x.movedim(1, 0))          # runs lead: [n, T, ...]
+    groups = [mesh.get_group(dim) for dim in range(mesh.ndim)]
+    on_card = all(dist.get_backend(g) == "nccl" for g in groups)
+    sizes = [x.numel() * x.element_size() for x in runs]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8,
+                      device=runs[0].device if on_card else "cpu")
+    at = 0
+    for x, size in zip(runs, sizes):
+        buf[at:at + size].copy_(x.contiguous().reshape(-1).view(torch.uint8))
+        at += size
+    for dim in reversed(range(mesh.ndim)):
+        parts = [torch.empty_like(buf) for _ in range(mesh.size(dim))]
+        dist.all_gather(parts, buf, group=groups[dim])
+        buf = torch.cat(parts)
+    ranks = buf.view(-1, at)                  # [mesh size, one rank's bytes]
+    out, at = [], 0
+    for x, size in zip(runs, sizes):
+        block = ranks[:, at:at + size].contiguous().view(x.dtype)
+        out.append(block.reshape((-1,) + x.shape[1:]))
+        at += size
+    it = iter(out)
+    final = _tree_map(lambda _: next(it), final)
+    return final, TraceSample(*[x.movedim(0, 1) for x in it])
 
 
 class Sweep:
@@ -863,17 +928,24 @@ class Sweep:
                  min_switches, device):
         """Stack, pad and stage the batch; returns ``(WindowStatic,
         WindowInputs, n_samples)`` — everything a launch needs short of
-        the window runner.  Shared by ``prepare`` and ``run``."""
-        _refuse_mesh(mesh)
+        the window runner.  Shared by ``prepare`` and ``run``.
+
+        With a ``mesh`` the batch is padded to a multiple of its size,
+        staged whole as one launch stages it (delay slots, switch count,
+        dense rows and pool depth from the whole batch), and cut to this
+        rank's contiguous slice before its plans are built."""
         refuse_unported(reduce=reduce, use_kernels=use_kernels,
                         temperature=temperature)
-        dev = resolve_device(device)
+        part = None if mesh is None else _mesh_shard(mesh)
+        dev = _sweep_device(mesh, device)
         cfg0 = self.points[0].cfg
         n_samples, k = _resolve_steps(cfg0, n_steps, trace_every)
         scns = [p.scenario for p in self.points]
         cfgs = [p.cfg for p in self.points]
         R = len(self.points)
         R_target = R if pad_runs_to is None else max(R, int(pad_runs_to))
+        if part is not None and R_target % part[1]:
+            R_target += part[1] - R_target % part[1]
         if R_target > R:                      # replicate the last run
             scns = scns + [scns[-1]] * (R_target - R)
             cfgs = cfgs + [cfgs[-1]] * (R_target - R)
@@ -888,9 +960,17 @@ class Sweep:
         par_b = step_params(cfgs, temperature=temperature, device=dev)
         dense_rows = batch_dense_rows(padded, self.n_vcs, reduce,
                                       dense_rows)
+        pool_rows = None
+        if part is not None:                  # this rank's slice
+            pool_rows = int(pool_counts(sd_b, n_sw).max(initial=0))
+            per = R_target // part[1]
+            lo = part[0] * per
+            cut = lambda x: x[lo:lo + per]                 # noqa: E731
+            st_b, sd_b, par_b = (_tree_map(cut, t)
+                                 for t in (st_b, sd_b, par_b))
         dt = float(cfg0.sim.dt)
         plan = reduce_plan(sd_b, n_switches=n_sw, n_vcs=self.n_vcs,
-                           dense_rows=dense_rows, dt=dt)
+                           dense_rows=dense_rows, dt=dt, pool_rows=pool_rows)
         packed = cc.pack_react_rows(par_b.react, par_b.line_rate, plan.dt)
         tier = kernel_tier(use_kernels)
         mplan = None
@@ -919,6 +999,8 @@ class Sweep:
         stages ``block``: one ``megastep_block`` launch per window).
         This is the eager API: each call issues its launches from Python
         (``decimating_scan`` over it is ``run``'s result, uncaptured).
+        With a ``mesh`` (see ``run``) it stages this rank's slice of the
+        padded batch on this rank's device.
         """
         static, inp, n_samples = self._prepare(
             n_steps, trace_every, mesh=mesh, reduce=reduce,
@@ -977,9 +1059,20 @@ class Sweep:
         the card and their plain versions on the CPU.
         ``use_kernels="mega"`` makes each trace window of the whole
         batch one ``megastep_block`` launch (not with ``"pallas"``).
-        ``mesh=`` raises NotImplementedError: one card has no run axis to
-        shard; ``repro_torch.fleet.run_fleet`` takes a sweep too large
-        for one launch.
+
+        ``mesh``: a ``torch.distributed.device_mesh.DeviceMesh`` (e.g.
+        ``repro_torch.dist.sweep_mesh()``) cuts the run axis over its
+        ranks, one process a rank, every rank calling ``run``: the batch
+        is padded to a multiple of ``mesh.size()`` by replicating the last
+        point, staged whole as one launch stages it, and each rank
+        advances its contiguous slice on its device (``device=None``:
+        its current card for a cuda mesh, the CPU for a cpu mesh) on
+        any tier and engine; the finals and traces are gathered over the
+        mesh (NCCL on the card, host copies over gloo) and every rank
+        returns the whole result, padding dropped.  Results are bitwise
+        identical to the single-launch run, run for run.  A rank outside
+        the mesh raises ValueError; a ``mesh`` that is no ``DeviceMesh``
+        TypeError.
 
         ``temperature`` > 0 runs the soft-relaxed dynamics of
         ``repro_torch.tune`` (every run of the batch at that temperature,
@@ -993,8 +1086,7 @@ class Sweep:
         ``min_switches`` pin the batch geometry as in the reference;
         results are unaffected (padding runs are dropped on return).
         """
-        _refuse_mesh(mesh)
-        dev = resolve_device(device)
+        dev = _sweep_device(mesh, device)
         with card_lock(dev):
             static, inp, n_samples = self._prepare(
                 n_steps, trace_every, mesh=mesh, reduce=reduce,
@@ -1006,6 +1098,8 @@ class Sweep:
                 final, tr = decimating_scan(None, inp.state, n_samples,
                                             static.trace_every, static.dt,
                                             self.n_vcs, runner=runner)
+            if mesh is not None:
+                final, tr = _gather_runs(mesh, final, tr)
             return self.collect(final, tr, static.trace_every)
 
     def collect(self, final: FluidState, traces: TraceSample,

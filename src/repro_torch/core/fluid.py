@@ -556,13 +556,24 @@ def init_state(scns, cfgs, delay_slots: int | None = None, *,
         for f in FluidState._fields})
 
 
+def pool_counts(sd: ScenarioDev, n_switches: int) -> np.ndarray:
+    """[R, n_switches] links draining into each switch's shared pool."""
+    L = sd.cap_ext.shape[1] - 1
+    sinks = sd.sink_ext[:, :L].cpu().numpy()
+    return np.stack([np.bincount(sk[sk >= 0], minlength=n_switches)
+                     [:n_switches] for sk in sinks])
+
+
 def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
-                dense_rows: int, dt: float) -> ReducePlan:
+                dense_rows: int, dt: float,
+                pool_rows: int | None = None) -> ReducePlan:
     """Build the ordered-sum gather tables of a batch (host work, once).
 
     Runs are flattened by offsetting row ids by ``r*F*K*H`` (and links
     by ``r*L``), so one gather + row-by-row add serves the whole batch
     while each queue still sums its contributors in incidence order.
+    ``pool_rows`` floors the pool walk's depth (normally the batch's
+    largest switch): a slice of a batch walks as deep as the batch.
     """
     dev = sd.gen_rate.device
     R, F, K, H = sd.alt_routes.shape
@@ -587,10 +598,8 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
     # per-switch pool: links stably sorted by sink switch; host-sink
     # links sort after every switch and add exact zeros, so they drop out
     pperm = sd.pool_perm.cpu().numpy()
-    sinks = sd.sink_ext[:, :L].cpu().numpy()
-    counts = np.stack([np.bincount(sk[sk >= 0], minlength=n_switches)
-                       [:n_switches] for sk in sinks])
-    p_rows = int(counts.max(initial=0))
+    counts = pool_counts(sd, n_switches)
+    p_rows = max(int(counts.max(initial=0)), int(pool_rows or 0))
     starts = np.concatenate([np.zeros((R, 1), np.int64),
                              np.cumsum(counts, axis=1)[:, :-1]], axis=1)
     ppos = np.arange(p_rows, dtype=np.int64)[:, None, None]

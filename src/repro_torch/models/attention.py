@@ -1,7 +1,7 @@
 """GQA attention: causal / sliding-window variants with a KV cache, and
 the encoder-decoder's bidirectional and cross attention (port of
-``repro.models.attention``; its ``cache_spec``, logical mesh axes, stays
-with the mesh helpers the port does not carry).
+``repro.models.attention``; ``cache_spec`` gives a cache's logical
+sharding dims).
 
 KV cache layout: ``k, v: [batch, cache_len, n_kv, head_dim]`` plus
 ``pos``, the absolute number of tokens already cached: a ``[]`` int32
@@ -65,6 +65,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int, kind: str):
+    """Logical dims for the cache (SP over length when heads indivisible)."""
+    return KVCache(k=("cache_batch", "kv_seq", None, None),
+                   v=("cache_batch", "kv_seq", None, None),
+                   pos=())
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

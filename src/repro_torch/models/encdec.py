@@ -24,7 +24,8 @@ NaN, but an out-of-range index on the card kills the CUDA context, so
 the table.
 
 Entry points: ``param_defs``, ``encode``, ``decode``, ``forward``,
-``prefill``, ``decode_step``, ``init_dec_caches``, ``loss_fn``.
+``prefill``, ``decode_step``, ``init_dec_caches``, ``dec_cache_specs``,
+``loss_fn``.
 """
 
 from __future__ import annotations
@@ -141,6 +142,12 @@ def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for _ in range(cfg.n_layers)]
 
 
+def dec_cache_specs(cfg: ModelConfig) -> list:
+    """Logical dims of ``init_dec_caches``'s caches, one a layer."""
+    return [attn_mod.cache_spec(cfg, 0, 0, "attn")
+            for _ in range(cfg.n_layers)]
+
+
 def forward(params, cfg: ModelConfig, frames, tokens):
     """Full enc-dec training forward -> (logits, aux = 0)."""
     enc_out = encode(params, cfg, frames)
@@ -188,5 +195,6 @@ def loss_fn(params, cfg: ModelConfig, frames, tokens, labels):
     return loss + aux, (loss, aux)
 
 
-__all__ = ["DEC_POS", "decode", "decode_step", "encode", "forward",
-           "init_dec_caches", "loss_fn", "param_defs", "prefill"]
+__all__ = ["DEC_POS", "dec_cache_specs", "decode", "decode_step",
+           "encode", "forward", "init_dec_caches", "loss_fn", "param_defs",
+           "prefill"]

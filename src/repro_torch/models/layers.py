@@ -2,11 +2,14 @@
 ``repro.models.layers``).
 
 Params are described by trees (dicts and lists) of
-``ParamDef(shape, dims, init)``; ``init_params`` materialises one as
-tensors on a device.  ``dims`` (the reference's logical sharding axes)
-are kept so a def tree reads like the reference's, but the port runs on
-one card and shards nothing: the reference's ``shard`` constraints are
-dropped, and the mesh waits for the ``dist`` port.
+``ParamDef(shape, dims, init)``, where ``dims`` are *logical* sharding
+axes (see ``repro_torch.dist.sharding``).  The same tree materialises
+three ways:
+
+  * ``init_params``      — real tensors on a device (seeded)
+  * ``abstract_params``  — meta-device tensors (shape and dtype, no
+    storage: the reference's ShapeDtypeStructs)
+  * ``param_specs``      — logical-dims tree (for ``logical_sharding``)
 
 Numerics follow the reference where the frameworks' defaults differ:
 norms compute in float32 and cast back; GELU is the tanh approximation
@@ -86,13 +89,29 @@ def init_params(defs, seed: int, dtype=torch.float32, device=None):
     return build(defs)
 
 
+def _map_defs(fn, defs):
+    """The def tree with each ``ParamDef`` d replaced by ``fn(d)``."""
+    if is_def(defs):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: _map_defs(fn, v) for k, v in defs.items()}
+    return [_map_defs(fn, x) for x in defs]
+
+
+def abstract_params(defs, dtype=torch.bfloat16):
+    """The def tree as meta-device tensors of ``dtype``."""
+    return _map_defs(
+        lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
+
+
+def param_specs(defs):
+    """The def tree with each ``ParamDef`` replaced by its logical dims."""
+    return _map_defs(lambda d: tuple(d.dims), defs)
+
+
 def param_shapes(defs):
     """The def tree with each ``ParamDef`` replaced by its shape tuple."""
-    if is_def(defs):
-        return tuple(defs.shape)
-    if isinstance(defs, dict):
-        return {k: param_shapes(v) for k, v in defs.items()}
-    return [param_shapes(x) for x in defs]
+    return _map_defs(lambda d: tuple(d.shape), defs)
 
 
 # ---------------------------------------------------------------------------

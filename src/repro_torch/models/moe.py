@@ -20,7 +20,8 @@ dispatch paths with the same drops, as in the reference:
 Routing is ``jax.lax.top_k``'s: the k largest router probabilities, a
 tie to the lower expert index (a stable descending sort gives that).
 ``cfg.moe_tokens`` and the reference's ``shard`` constraints place
-tokens on a mesh; on one card they have no meaning and drop out.
+tokens on a mesh; the models run whole on one rank, so they are left
+out.
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ runs ``scan.associative_scan`` over the sequence; decode carries
 stays float32 whatever the activation dtype.  The functions return a
 new state, as the reference's do; ``transformer`` writes it into the
 caller's state tensors.  GELU is the tanh form (``jax.nn.gelu``'s
-default).  The reference's ``shard`` constraints have no meaning on one
-card and are dropped.
+default).  The reference's ``shard`` constraints (the identity outside a
+mesh, ``repro_torch.dist.sharding.shard``) are left out: the models run
+whole on one rank.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype,
         h=torch.zeros((batch, w), dtype=torch.float32, device=device))
 
 
+def rglru_state_spec(cfg: ModelConfig) -> RGLRUState:
+    return RGLRUState(conv=("cache_batch", None, "mlp"),
+                      h=("cache_batch", "mlp"))
+
+
 def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 state: RGLRUState | None = None):
     """x: [b, t, d] -> (y, new_state)."""
@@ -92,4 +98,4 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 __all__ = ["C_SCALE", "RGLRUState", "apply_rglru", "init_rglru_state",
-           "rglru_defs"]
+           "rglru_defs", "rglru_state_spec"]

@@ -11,8 +11,9 @@ float32.  The functions return a new state, as the reference's do;
 ``transformer`` writes it into the caller's state tensors.
 ``jax.nn.softplus`` is ``logaddexp(x, 0)``, kept as such
 (``F.softplus`` returns x itself above its threshold of 20).
-``cfg.ssm_shard`` and the ``shard`` constraints have no meaning on one
-card and are dropped.
+``cfg.ssm_shard`` and the ``shard`` constraints (the identity outside a
+mesh, ``repro_torch.dist.sharding.shard``) are left out: the models run
+whole on one rank.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:
                          device=device),
         ssm=torch.zeros((batch, cfg.d_inner, s.d_state),
                         dtype=torch.float32, device=device))
+
+
+def ssm_state_spec(cfg: ModelConfig) -> SSMState:
+    return SSMState(conv=("cache_batch", None, "mlp"),
+                    ssm=("cache_batch", "mlp", "state"))
 
 
 def _ssm_params(p: dict, cfg: ModelConfig, xc: torch.Tensor):
@@ -124,4 +130,5 @@ def apply_ssm(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, SSMState(conv=new_conv.to(x.dtype), ssm=h)
 
 
-__all__ = ["SSMState", "apply_ssm", "init_ssm_state", "ssm_defs"]
+__all__ = ["SSMState", "apply_ssm", "init_ssm_state", "ssm_defs",
+           "ssm_state_spec"]

@@ -144,6 +144,23 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for k in layer_kinds(cfg)]
 
 
+def _blk_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int):
+    if kind == "ssm":
+        return ssm_mod.ssm_state_spec(cfg)
+    if kind == "rec":
+        return rglru_mod.rglru_state_spec(cfg)
+    return attn_mod.cache_spec(cfg, batch, max_len, kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """Logical dims of ``init_caches``'s caches: one ``KVCache``,
+    ``SSMState`` or ``RGLRUState`` of dims tuples a layer (the
+    reference's tree, unstacked as the port's caches are)."""
+    check_ported(cfg)
+    return [_blk_cache_spec(cfg, k, batch, max_len)
+            for k in layer_kinds(cfg)]
+
+
 def _keep_state(cache, new):
     """Write a recurrent layer's new state into the caller's tensors."""
     if cache is None:
@@ -361,6 +378,7 @@ def n_params(params) -> int:
     return sum(n_params(v) for v in params)
 
 
-__all__ = ["ATTN_KINDS", "PORTED_KINDS", "check_ported", "decode_step",
+__all__ = ["ATTN_KINDS", "PORTED_KINDS", "cache_specs", "check_ported",
+           "decode_step",
            "forward", "forward_hidden", "init_caches", "layer_kinds",
            "layer_plan", "loss_fn", "n_params", "param_defs", "prefill"]

@@ -56,6 +56,32 @@ def adamw_init(params, cfg: AdamWConfig) -> OptState:
                     nu=tree_map(_zeros32, params), master=master)
 
 
+def is_dims(x) -> bool:
+    """A logical-dims leaf of a spec tree: a tuple of axis names / None."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def copy_dims(tree):
+    """A copy of a logical-dims tree (dicts, lists, NamedTuples)."""
+    if is_dims(tree):
+        return tuple(tree)
+    if isinstance(tree, dict):
+        return {k: copy_dims(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[copy_dims(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(copy_dims(v) for v in tree)
+    return tree
+
+
+def opt_state_specs(param_spec_tree, cfg: AdamWConfig) -> OptState:
+    """Logical-dims tree for the optimizer state (mirrors params)."""
+    copy = copy_dims(param_spec_tree)
+    return OptState(step=(), mu=copy, nu=copy_dims(param_spec_tree),
+                    master=copy if cfg.use_master else None)
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in leaves(tree)))

@@ -1,8 +1,8 @@
 """repro_torch.train — step builders + fault-tolerant training loop (port
-of ``repro.train``; ``train_state_specs``, a mesh helper, is not
-ported)."""
+of ``repro.train``)."""
 
-from .step import TrainState, make_train_step
+from .step import TrainState, make_train_step, train_state_specs
 from .loop import TrainLoopConfig, train_loop
 
-__all__ = ["TrainState", "make_train_step", "TrainLoopConfig", "train_loop"]
+__all__ = ["TrainState", "make_train_step", "train_state_specs",
+           "TrainLoopConfig", "train_loop"]

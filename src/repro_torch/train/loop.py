@@ -6,19 +6,25 @@
     step (bit-exact),
   * preemption: SIGTERM-style `stop_flag` triggers a final save,
   * straggler detection: per-step wall-time EWMA after 2 warm-up steps;
-    steps slower than ``straggler_factor``x the EWMA are counted.
+    steps slower than ``straggler_factor``x the EWMA are counted,
+  * elastic restart: restore onto a different mesh via
+    ``state_shardings`` (a ``TrainState`` of
+    ``repro_torch.dist.sharding.NamedSharding``): the leaves come back as
+    DTensors on them, and the steps run under DTensor's implicit
+    replication, so the batch (a plain tensor) meets them as replicated.
 
 ``float(metrics["loss"])`` is the loop's one host read a step, as in the
-reference.  The reference's ``state_shardings`` (an elastic restore onto
-another mesh) has no meaning on one card: a restored state goes to the
-device of the state the caller passed (its key to the CPU).
+reference.  Without ``state_shardings`` a restored state goes to the
+device of the state the caller passed.  Either way its key stays a
+plain uint32[2] tensor on the CPU (host arithmetic, ``split_key``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -43,9 +49,16 @@ class TrainLoopConfig:
     straggler_factor: float = 3.0
 
 
-def restore_state(directory: str, device) -> tuple[TrainState, dict]:
+def restore_state(directory: str, device=None, *,
+                  shardings: Optional[TrainState] = None
+                  ) -> tuple[TrainState, dict]:
     """The newest loadable checkpoint in ``directory`` as a
-    ``TrainState`` on ``device`` (its key on the CPU), and its extra."""
+    ``TrainState`` on ``device``, or as DTensors on ``shardings`` (its
+    key a CPU tensor either way), and its extra."""
+    if shardings is not None:
+        return load_checkpoint(directory,
+                               shardings=shardings._replace(rng=None),
+                               nt_registry=NT_REGISTRY)
     state, extra = load_checkpoint(directory, device=device,
                                    nt_registry=NT_REGISTRY)
     return state._replace(rng=state.rng.cpu()), extra
@@ -53,14 +66,20 @@ def restore_state(directory: str, device) -> tuple[TrainState, dict]:
 
 def train_loop(step_fn: Callable, state: TrainState, data_cfg: DataConfig,
                loop_cfg: TrainLoopConfig, *,
+               state_shardings: Any = None,
                stop_flag: Optional[Callable[[], bool]] = None,
                on_metrics: Optional[Callable] = None) -> dict:
     """Run training; returns summary metrics."""
     start_step = 0
     if loop_cfg.ckpt_dir and latest_step(loop_cfg.ckpt_dir) is not None:
         state, extra = restore_state(loop_cfg.ckpt_dir,
-                                     leaves(state.params)[0].device)
+                                     leaves(state.params)[0].device,
+                                     shardings=state_shardings)
         start_step = int(extra["data_step"])
+    spmd = contextlib.nullcontext
+    if state_shardings is not None:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication as spmd
 
     mgr = (CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep_ckpts)
            if loop_cfg.ckpt_dir else None)
@@ -75,8 +94,9 @@ def train_loop(step_fn: Callable, state: TrainState, data_cfg: DataConfig,
         if step >= loop_cfg.total_steps:
             break
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
+        with spmd():
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         step_times.append(dt)
         losses.append(loss)

@@ -1,6 +1,5 @@
 """train_step builder: loss -> grads -> (optional EF-int8) -> AdamW (port
-of ``repro.train.step``; ``train_state_specs``, a mesh helper, is not
-ported).
+of ``repro.train.step``).
 
 One function covers all ten architectures: the model family dispatch
 (decoder / enc-dec / vlm) picks the loss; everything below it is shared.
@@ -32,7 +31,8 @@ from ..models import encdec, transformer, vlm
 from ..models.config import ModelConfig
 from ..optim import (AdamWConfig, EFState, OptState, adamw_init,
                      adamw_update, ef_compress_update, ef_init,
-                     cosine_schedule)
+                     cosine_schedule, opt_state_specs)
+from ..optim.adamw import copy_dims
 from ..optim._tree import leaves, paths, unflatten
 
 
@@ -115,6 +115,18 @@ def init_train_state(cfg: ModelConfig, params, sc: StepConfig,
         opt=adamw_init(params, sc.opt),
         ef=ef_init(params) if sc.compress_grads else None,
         rng=prng_key(seed))
+
+
+def train_state_specs(cfg: ModelConfig, param_spec_tree,
+                      sc: StepConfig) -> TrainState:
+    """Logical-dims tree of a ``TrainState`` (the key's dims are the
+    reference's; the port keeps the key on the host)."""
+    return TrainState(
+        params=copy_dims(param_spec_tree),
+        opt=opt_state_specs(param_spec_tree, sc.opt),
+        ef=EFState(residual=copy_dims(param_spec_tree))
+        if sc.compress_grads else None,
+        rng=(None,))
 
 
 def scale_groups(cfg: ModelConfig, params) -> list[list[int]]:

@@ -42,7 +42,9 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.optim.schedule, repro_torch.data, "
             "repro_torch.data.pipeline, repro_torch.train, "
             "repro_torch.train.step, repro_torch.train.loop, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.dist, "
+            "repro_torch.dist.sharding, repro_torch.dist.pipeline, "
+            "repro_torch.launch.mesh; "
             "from repro_torch.serve import make_serve_step, whatif; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -53,18 +55,18 @@ def test_import_loads_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("pkg", ["serve", "models", "optim", "train",
-                                 "data"])
+                                 "data", "dist"])
 def test_package_names_match_reference(pkg):
-    """``repro_torch.<pkg>`` binds the reference's names; ``models``,
-    ``optim`` and ``train`` bind all of them but the reference's mesh
-    helpers (ROADMAP Queue 1)."""
+    """``repro_torch.<pkg>`` binds the reference's names (the mesh
+    helpers of ``models``, ``optim`` and ``train`` too); ``dist`` binds
+    the reference's five beside its ``procs`` and ``pacer`` names."""
     import importlib
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
-    unported = {"models": {"abstract_params", "param_specs"},
-                "optim": {"opt_state_specs"},
-                "train": {"train_state_specs"}}.get(pkg, set())
-    assert set(port.__all__) == set(ref.__all__) - unported
+    if pkg == "dist":
+        assert set(ref.__all__) <= set(port.__all__)
+    else:
+        assert set(port.__all__) == set(ref.__all__)
     if pkg == "serve":
         assert port.__all__ == ref.__all__
     for name in port.__all__:

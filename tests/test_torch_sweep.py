@@ -127,12 +127,14 @@ def test_pad_runs_to_and_delay_slots_leave_results_unchanged():
 @pytest.mark.parametrize("kw, exc, slice_", [
     (dict(temperature=0.1, use_kernels=True), ValueError,
      "hard dynamics only"),
-    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(mesh=object()), TypeError, "mesh"),
 ])
 def test_unported_options_raise(kw, exc, slice_):
-    """``mesh=`` is not ported yet; a positive temperature runs (the soft
-    model, ``tests/test_torch_tune.py``) but not on a kernel tier, which
-    computes the hard dynamics only, as in the reference."""
+    """``mesh=`` takes a torch ``DeviceMesh`` (``tests/
+    test_torch_sharded_sweep.py`` runs it) and refuses anything else; a
+    positive temperature runs (the soft model, ``tests/test_torch_tune.py``)
+    but not on a kernel tier, which computes the hard dynamics only, as
+    in the reference."""
     sweep = Sweep.grid(configs=SCHEMES,
                        scenarios=ScenarioSpec.paper_incast(roll=0))
     with pytest.raises(exc, match=slice_):
