@@ -34,13 +34,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
   6. dc      — the main path at datacenter scale: the 36 CC stage
                combinations x a 4096-flow permutation on a 272-host
                dragonfly.  A 100-step window runs on the card and on the
-               CPU (plain versions) and must agree; then 3000 steps on
+               CPU (plain versions) and must agree; then 2000 steps on
                the card give steps/s and peak device memory;
   7. mega    — the dc batch through the megakernel: 100 ``megastep``
                launches held StepTrace by StepTrace to the flow tier
                (timed by CUDA-graph replay), ``megastep_block`` at F in
                {1, 127, 129, 8193} and on the routing grid with two VCs a
-               wire, then the 3000-step dc sweep as one launch per trace
+               wire, then the 2000-step dc sweep as one launch per trace
                window, bitwise equal to phase 6's result, with its
                steps/s and profile; every mega path (here and in phases
                4, 5 and 8) prints its cluster size and the SMs it used;
@@ -202,7 +202,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                path's, and the plain path gives every leaf a gradient;
  21. sharded_sweep — the distribution substrate (``repro_torch.dist``):
                (a) a child process with a world of one on the card runs
-               the dc sweep (36 runs, 3000 steps) through
+               the dc sweep (36 runs, 2000 steps) through
                ``Sweep.run(mesh=sweep_mesh(1))`` on the flow and mega
                tiers, bitwise one launch of it timed there and phase 6's
                result, then the mega tier in a world of one over NCCL
@@ -226,6 +226,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
                stdin to touch the card, then run, (b) after (a), while
                the tune phase waits on its last child (the gradient
                autotune, one host-bound process), before phase 20 (a).
+ 22. sharded_models — the models' ``shard(...)`` calls, the dry run and
+               the perf driver (``repro_torch.launch.{dryrun,perf}``):
+               (a) two host children with no card, started after the
+               build, run ``python -m repro_torch.launch.dryrun``'s
+               ``main`` on the reference test's seven (arch, shape) pairs
+               at full size, one child a production mesh (fake worlds of
+               256 and 512 ranks), and the perf driver's ``main`` on one
+               cell with one ``--set``; every cell traced, each rank's
+               argument bytes the sharding rules' reckoning of every
+               leaf's shard, the perf record written, a line a cell
+               (FLOPs, collective bytes, temp GiB, fits_h100, trace s);
+               the pod child also counts (b)'s two calls on fake tensors
+               for the perf model; (b) phi3-medium-14b at full width and
+               depth in bf16 in a world of one over NCCL: 2 x 2048 random
+               tokens, a prefill and 8 eager greedy decode steps, then one
+               train step at depth 2 on 4 x 1024 tokens, each inside
+               ``set_mesh(make_host_mesh())`` (every leaf a DTensor, the
+               ``shard`` calls live) and outside any mesh: logits, tokens,
+               loss and new params bitwise, no kernel launched, device ms
+               and host wall each way, peak memory, the perf model's
+               compute and memory terms beside the device time.  Two
+               ranks sharing the card over gloo are left out: gloo's
+               all-gather of CUDA tensors kills both ranks (SIGSEGV,
+               torch 2.11), so that check waits for a call with two
+               cards (ROADMAP).
 Kernel launch counts are zeroed just before each path's run and read
 just after; every path asserts each of its kernels' exact count, and
 flash_attention's exact count on each route.
@@ -258,10 +283,11 @@ SFU_PER_CLOCK = 16
 
 #: steps of the DC-scale run (and of the what-if dc queries and the
 #: fleet's dc run, held to it), and of its card-vs-CPU window (the
-#: megastep comparison and the fleet's preempted plan share it): 3000
-#: and 100, cut from 5000 and 200 to keep the script under 600 s with
-#: the families' serve cells
-DC_STEPS = 3000
+#: megastep comparison and the fleet's preempted plan share it): 2000
+#: and 100, cut from 5000 and 200 (5000 -> 3000 with the families' serve
+#: cells, 3000 -> 2000 with the sharded model step) to keep the script
+#: under 600 s
+DC_STEPS = 2000
 DC_CHECK_STEPS = 100
 #: steps of the hotspot runs (card engines and the CPU window)
 HOT_STEPS = 200
@@ -4159,19 +4185,24 @@ def _profile_soft(ev, theta, tau: float) -> dict:
     return rec
 
 
-def _child(fn: str, *args, stdin: bool = False) -> "subprocess.Popen":
+def _child(fn: str, *args, stdin: bool = False,
+           card: bool = True) -> "subprocess.Popen":
     """Start ``chip_smoke.<fn>(*args)`` in a child process; its last
     stdout line is the JSON of what it returns (``_join``).  The soft
     rollout is host-bound (one core, the card ~96% idle), so the tune
     phase runs its long calls side by side in processes of their own.
-    ``stdin``: a pipe the parent may write to (phase 21's go)."""
+    ``stdin``: a pipe the parent may write to (phase 21's go).
+    ``card=False`` hides the card from the child (phase 22's dry run)."""
     code = (f"import json, sys; sys.path[:0] = [{SRC!r}, {HERE!r}]; "
             f"import chip_smoke as c; "
             f"print(json.dumps(c.{fn}(*json.loads(sys.argv[1]))))")
+    env = None
+    if not card:
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen([sys.executable, "-c", code, json.dumps(args)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             stdin=subprocess.PIPE if stdin else None,
-                            text=True, cwd=HERE)
+                            text=True, cwd=HERE, env=env)
 
 
 def _join(proc, what: str, timeout: float = 900.0):
@@ -5418,6 +5449,486 @@ def phase_sharded_sweep(checks: dict, runs: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the models' shard(...) calls, the dry run, a sharded step
+# ---------------------------------------------------------------------------
+
+#: (a): the reference test's seven (arch, shape) pairs (tests/test_dryrun.py)
+#: at full size, each on both production meshes, and the perf driver on one
+DRY_PAIRS = [("qwen2.5-32b", "train_4k"), ("gemma2-27b", "prefill_32k"),
+             ("mixtral-8x22b", "decode_32k"),
+             ("falcon-mamba-7b", "long_500k"), ("whisper-base", "decode_32k"),
+             ("internvl2-26b", "train_4k"),
+             ("recurrentgemma-9b", "decode_32k")]
+DRY_PERF = ("falcon-mamba-7b", "long_500k", "ssm.d_state=8")
+#: (b): phi3-medium-14b at full width and depth in bf16, 2 prompts of
+#: 2048 random tokens (seed 0) and 8 eager decode steps; one train step at
+#: depth 2 (a functional step holds ~32 B a parameter), 4 x 1024 tokens
+SHARD_ARCH = "phi3-medium-14b"
+SHARD_BATCH, SHARD_PROMPT, SHARD_NEW = 2, 2048, 8
+SHARD_TRAIN_LAYERS, SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 2, 4, 1024
+#: the model modules whose ``shard`` calls (b) counts
+SHARD_MODULES = ("layers", "transformer", "attention", "moe", "ssm",
+                 "rglru", "encdec", "vlm")
+
+
+def dryrun_cells(multi: bool, out: str, perf: bool) -> dict:
+    """Phase 22 (a), a host child with no card: ``python -m
+    repro_torch.launch.dryrun``'s ``main`` on each of ``DRY_PAIRS`` on one
+    production mesh (a fake world of 256 or 512 ranks), each cell's
+    argument bytes against the sharding rules' reckoning of every leaf's
+    shard, and (``perf``) the perf driver's ``main`` on ``DRY_PERF``
+    against that baseline."""
+    import contextlib
+    import io
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import logical_sharding, set_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import perf as perf_mod
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh_name = "pod2x16x16" if multi else "pod16x16"
+    t0 = time.perf_counter()
+    for arch, shape in DRY_PAIRS:
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                     "multipod" if multi else "pod", "--out", out])
+    rec = {"mesh": mesh_name, "seconds": time.perf_counter() - t0,
+           "cells": {}}
+    mesh = make_production_mesh(multi_pod=multi)
+    for arch, shape in DRY_PAIRS:
+        with open(os.path.join(out, mesh_name, f"{arch}__{shape}.json")) as f:
+            cell = json.load(f)
+        with set_mesh(None):
+            _, args, dims, _ = dryrun.abstract_cell(
+                dryrun._dryrun_config(get_config(arch)), shape)
+        reckoned = 0
+        for t, d in zip(dryrun._tensors(args), _flat_dims(args, dims)):
+            d = tuple(d) if d is not None else (None,) * t.dim()
+            sh = logical_sharding(d, tuple(t.shape), mesh)
+            reckoned += math.prod(sh.shard_shape(t.shape)) * t.element_size()
+        mem = cell["memory"]
+        rec["cells"][f"{arch}/{shape}"] = {
+            "flops_total": cell["flops_total"],
+            "collective_bytes_total": cell["collective_bytes_total"],
+            "collectives": cell["collectives"],
+            "temp_gib": mem["temp_size_in_bytes"] / 2**30,
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "reckoned_argument_bytes": reckoned,
+            "fits_h100": cell["fits_h100"], "trace_s": cell["trace_s"]}
+    if perf:
+        arch, shape, override = DRY_PERF
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            p = perf_mod.main(["--arch", arch, "--shape", shape, "--tag",
+                               "override", "--set", override, "--dryrun-dir",
+                               out, "--out", os.path.join(out, "perf")])
+        rec["perf"] = {"cell": f"{arch}/{shape}", "set": override,
+                       "table": buf.getvalue().strip().splitlines(),
+                       "record": p["path"],
+                       "written": os.path.exists(p["path"]),
+                       "seconds": time.perf_counter() - t1}
+        t1 = time.perf_counter()
+        rec["phi3_counts"] = phi3_counts()
+        rec["phi3_counts"]["seconds"] = time.perf_counter() - t1
+    return rec
+
+
+def phi3_counts() -> dict:
+    """The dry run's counters over (b)'s two calls, traced on fake
+    tensors in a fake world of one on ``make_host_mesh()``'s axes (the
+    card's layout: every shard whole): the prefill at full depth and the
+    depth-``SHARD_TRAIN_LAYERS`` train step, each as the perf model's
+    terms (``launch/perf.py::_terms``)."""
+    import dataclasses
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import abstract_params, param_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import step as S
+    dryrun._fake_world(1)
+    mesh = make_host_mesh()
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), use_pallas=False)
+    tcfg = dataclasses.replace(cfg, n_layers=SHARD_TRAIN_LAYERS,
+                               remat="full")
+    sc = S.StepConfig(opt=AdamWConfig(use_master=True))
+    out = {}
+
+    def count(name, fn, *args):
+        counter = dryrun._LocalCounter()
+        with set_mesh(mesh), counter:
+            fn(*args)
+        coll = dryrun.collective_stats(counter.events)
+        rec = {"flops_total": counter.flops,
+               "bytes_accessed_total": counter.bytes_accessed,
+               "collective_bytes_total": coll["total_bytes"],
+               "memory": {"temp_size_in_bytes": 0}}
+        terms = perf._terms(rec)
+        out[name] = {"flops": counter.flops,
+                     "bytes_accessed": counter.bytes_accessed,
+                     "collective_bytes": coll["total_bytes"],
+                     "compute_s": terms["compute_s"],
+                     "memory_s": terms["memory_s"]}
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        defs = T.param_defs(cfg)
+        with set_mesh(None):
+            params = dryrun._sharded_abstract(
+                abstract_params(defs, torch.bfloat16), param_specs(defs),
+                mesh)
+        toks = torch.zeros((SHARD_BATCH, SHARD_PROMPT), dtype=torch.int32)
+        with torch.no_grad():
+            count("prefill", T.prefill, params, cfg, toks,
+                  SHARD_PROMPT + SHARD_NEW)
+        del params
+        tdefs = T.param_defs(tcfg)
+        with set_mesh(None), \
+                torch._subclasses.fake_tensor.unset_fake_temporarily():
+            state = S.init_train_state(
+                tcfg, abstract_params(tdefs, torch.bfloat16), sc)
+        specs = S.train_state_specs(tcfg, param_specs(tdefs), sc)
+        with set_mesh(None):
+            state = dryrun._sharded_abstract(state, specs, mesh)
+        toks = torch.zeros((SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ),
+                           dtype=torch.int32)
+        count("train", S.make_train_step(tcfg, sc), state,
+              {"tokens": toks, "labels": toks})
+    return out
+
+
+def _flat_dims(tree, spec) -> list:
+    """The dims leaf of ``spec`` at each tensor of ``tree``, in
+    ``dryrun._tensors`` order."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [spec]
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [d for k in tree for d in _flat_dims(tree[k], spec[k])]
+    return [d for t, sp in zip(tree, spec) for d in _flat_dims(t, sp)]
+
+
+def dryrun_children(out: str) -> list:
+    """Phase 22 (a)'s two host children (one a mesh), started after the
+    build: they trace on the host while the card runs phases 3-21."""
+    return [_child("dryrun_cells", False, out, True, card=False),
+            _child("dryrun_cells", True, out, False, card=False)]
+
+
+def _dtensors(tree, shardings, mesh):
+    """``tree``'s tensors as DTensors on ``shardings``' placements over the
+    same storage (a world of one: every shard is the whole tensor)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, torch.Tensor):
+        return DTensor.from_local(tree, mesh, shardings.placements,
+                                  run_check=False)
+    if isinstance(tree, dict):
+        return {k: _dtensors(v, shardings[k], mesh) for k, v in tree.items()}
+    if tree is None:
+        return None
+    out = [_dtensors(t, s, mesh) for t, s in zip(tree, shardings)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
+def _whole(x):
+    """A DTensor's whole value as a plain tensor (a plain one as is)."""
+    from torch.distributed.tensor import DTensor
+    while isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x
+
+
+class _ShardCalls:
+    """Counts the models' ``shard`` calls while open."""
+
+    def __enter__(self):
+        import importlib
+        from repro_torch.dist import sharding
+        self.n = 0
+        self.saved = []
+
+        def counted(x, *dims):
+            self.n += 1
+            return sharding.shard(x, *dims)
+        for name in SHARD_MODULES:
+            m = importlib.import_module(f"repro_torch.models.{name}")
+            if hasattr(m, "shard"):
+                self.saved.append((m, m.shard))
+                m.shard = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self.saved:
+            m.shard = f
+
+
+def _phi3_serve(params, cfg, toks, mesh, device) -> tuple:
+    """Prefill and ``SHARD_NEW`` eager greedy decode steps, inside
+    ``set_mesh(mesh)`` or (mesh None) outside any mesh, each under
+    torch.profiler: (logits of every call, the record)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.models import transformer as T
+    ctx = set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    outs, rec = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ctx, torch.no_grad(), _ShardCalls() as calls:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lg, caches = T.prefill(params, cfg, toks,
+                                   SHARD_PROMPT + SHARD_NEW)
+            lg = _whole(lg)
+            torch.cuda.synchronize()
+            rec["prefill_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_device_ms"] = sum(_device_us(prof)[0].values()) / 1e3
+        rec["prefill_shard_calls"] = calls.n
+        outs.append(lg)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(SHARD_NEW):
+                cur = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                pos = torch.full((), SHARD_PROMPT + i, dtype=torch.int32,
+                                 device=device)
+                lg, caches = T.decode_step(params, cfg, cur, caches, pos)
+                lg = _whole(lg)
+                outs.append(lg)
+            torch.cuda.synchronize()
+            rec["decode_wall_ms_per_step"] = (
+                (time.perf_counter() - t0) * 1e3 / SHARD_NEW)
+        rec["decode_device_ms_per_step"] = (
+            sum(_device_us(prof)[0].values()) / 1e3 / SHARD_NEW)
+        rec["shard_calls"] = calls.n
+    del caches
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["tokens"] = [o[:, -1].argmax(-1).tolist() for o in outs]
+    return outs, rec
+
+
+def _roofline(model: dict, device_ms: float) -> dict:
+    """The perf model's terms beside a measured device time (busy ms by
+    torch.profiler; "not measured" where it saw no device event)."""
+    rec = {**model, "device_ms": device_ms or "not measured",
+           "bound_ms": max(model["compute_s"], model["memory_s"]) * 1e3}
+    if device_ms:
+        rec["share_of_bf16_peak"] = (model["flops"] / (device_ms / 1e3)
+                                     / BF16_PEAK_FLOPS)
+    return rec
+
+
+def _phi3_step(step, state, batch, mesh) -> tuple:
+    """One train step inside ``set_mesh(mesh)`` or outside any mesh under
+    torch.profiler: (loss, the new params, the record)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.optim._tree import leaves
+    ctx = set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ctx, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        loss = _whole(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    params = [_whole(p) for p in leaves(new.params)]
+    del new, m
+    return loss, params, {"wall_ms": wall,
+                          "device_ms": sum(_device_us(prof)[0].values()) / 1e3,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _sharded_phi3(device) -> dict:
+    """Phase 22 (b): phi3-medium-14b in a world of one over NCCL, under
+    ``set_mesh(make_host_mesh())``, every parameter a DTensor placed by
+    ``tree_shardings`` and the models' ``shard`` calls live, against the
+    same calls outside any mesh (plain attention both ways, as the
+    reference's dry run sets ``use_pallas=False``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import set_mesh, tree_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params, param_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim._tree import leaves
+    from repro_torch.train import step as S
+    from repro_torch.tune.optimizers import deterministic
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    rec = {}
+    line = rec["timeline_s"] = {}
+
+    def mark(what):
+        line[what] = time.perf_counter() - t_start
+    try:
+        mesh = make_host_mesh()
+        rec["mesh"] = str(mesh)
+        rec["backend"] = dist.get_backend(mesh.get_group(0))
+        cfg = dataclasses.replace(get_config(SHARD_ARCH), use_pallas=False)
+        defs = T.param_defs(cfg)
+        t0 = time.perf_counter()
+        params = init_params(defs, 0, torch.bfloat16, device)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = T.n_params(params)
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in leaves(params))
+        placed = _dtensors(params, tree_shardings(param_specs(defs), params,
+                                                  mesh), mesh)
+        rec["all_dtensors"] = all(isinstance(p, DTensor)
+                                  for p in leaves(placed))
+        mark("params")
+        g = torch.Generator(device=device).manual_seed(0)
+        toks = torch.randint(2, cfg.vocab, (SHARD_BATCH, SHARD_PROMPT),
+                             generator=g, device=device, dtype=torch.int32)
+        with deterministic(device), torch.no_grad():   # warm-up, untimed
+            T.prefill(params, cfg, toks[:, :256], 256)
+        with deterministic(device):
+            plain, rec["outside"] = _phi3_serve(params, cfg, toks, None,
+                                                device)
+            mark("serve_outside")
+            reset_counts()
+            sharded, rec["inside"] = _phi3_serve(placed, cfg, toks, mesh,
+                                                 device)
+            rec["launches"] = counts()
+            rec["routes"] = routes()
+            mark("serve_inside")
+            rec["logits_bitwise"] = all(torch.equal(a, b)
+                                        for a, b in zip(plain, sharded))
+            rec["logits_max_abs_diff"] = max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(plain, sharded))
+            del plain, sharded
+        emit({"phase": "sharded_models", "case": "sharded_phi3_serve",
+              **{k: v for k, v in rec.items()}})
+        del params, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one train step at depth SHARD_TRAIN_LAYERS, each way
+        tcfg = dataclasses.replace(cfg, n_layers=SHARD_TRAIN_LAYERS,
+                                   remat="full")
+        tdefs = T.param_defs(tcfg)
+        sc = S.StepConfig(opt=AdamWConfig(use_master=True))
+        state = S.init_train_state(
+            tcfg, init_params(tdefs, 0, torch.bfloat16, device), sc)
+        rec["train_params"] = T.n_params(state.params)
+        toks = torch.randint(2, cfg.vocab,
+                             (SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ),
+                             generator=g, device=device, dtype=torch.int32)
+        batch = {"tokens": toks, "labels": toks}
+        step = S.make_train_step(tcfg, sc)
+        specs = S.train_state_specs(tcfg, param_specs(tdefs), sc)
+        shs = tree_shardings(specs._replace(rng=None),
+                             state._replace(rng=None), mesh)
+        dstate = _dtensors(state._replace(rng=None), shs, mesh)._replace(
+            rng=state.rng)
+        mark("train_state")
+        with deterministic(device):
+            loss0, p0, rec["train_outside"] = _phi3_step(step, state, batch,
+                                                         None)
+            mark("train_outside")
+            reset_counts()
+            loss1, p1, rec["train_inside"] = _phi3_step(step, dstate, batch,
+                                                        mesh)
+            rec["train_launches"] = counts()
+            mark("train_inside")
+            rec["train_loss"] = [float(loss0), float(loss1)]
+            rec["train_loss_bitwise"] = torch.equal(loss0, loss1)
+            rec["train_param_types"] = sorted(
+                {type(a).__name__ + "/" + type(b).__name__
+                 for a, b in zip(p0, p1)})
+            rec["train_params_bitwise"] = all(
+                torch.equal(_whole(a), _whole(b)) for a, b in zip(p0, p1))
+            del p0, p1
+        rec["train_tokens"] = SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ
+        del state, dstate
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark("end")
+    for way in ("outside", "inside"):
+        r = rec[way]
+        r["decode_tok_per_s"] = SHARD_BATCH / (
+            r["decode_wall_ms_per_step"] / 1e3)
+    rec["dispatch_cost_ms"] = {
+        "prefill": rec["inside"]["prefill_wall_ms"]
+        - rec["outside"]["prefill_wall_ms"],
+        "decode_step": rec["inside"]["decode_wall_ms_per_step"]
+        - rec["outside"]["decode_wall_ms_per_step"],
+        "train_step": rec["train_inside"]["wall_ms"]
+        - rec["train_outside"]["wall_ms"]}
+    return rec
+
+
+def phase_sharded_models(device, dry: list) -> dict:
+    """Phase 22: (b) the sharded phi3-medium-14b step on the card, then
+    (a) the dry run's host children (``dry``, started after the build)
+    joined and gated."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "sharded_models", "nvidia_smi": nvidia_smi()}
+    b = rec["sharded_phi3"] = _sharded_phi3(device)
+    b["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sharded_models", "case": "sharded_phi3",
+          "nvidia_smi": rec["nvidia_smi"], **b})
+    assert b["all_dtensors"] and b["backend"] == "nccl", b
+    assert b["inside"]["shard_calls"] > 0 and \
+        b["outside"]["shard_calls"] > 0, b
+    assert b["logits_bitwise"], b["logits_max_abs_diff"]
+    assert b["inside"]["tokens"] == b["outside"]["tokens"], b
+    assert b["train_loss_bitwise"] and b["train_params_bitwise"], b
+    assert not any(b["launches"].values()), b["launches"]
+    assert not any(b["routes"].values()), b["routes"]
+    assert not any(b["train_launches"].values()), b["train_launches"]
+    t_join = time.perf_counter()
+    cells = [_join(p, f"dryrun_cells {i}") for i, p in enumerate(dry)]
+    rec["dryrun"] = {"join_wait_s": time.perf_counter() - t_join,
+                     "meshes": cells}
+    for c in cells:
+        for name, cell in c["cells"].items():
+            emit({"phase": "sharded_models", "case": "dryrun",
+                  "mesh": c["mesh"], "cell": name, **cell})
+            assert cell["argument_bytes"] == \
+                cell["reckoned_argument_bytes"], (name, cell)
+            assert cell["flops_total"] > 0, (name, cell)
+        assert len(c["cells"]) == len(DRY_PAIRS), c
+    perf = cells[0]["perf"]
+    emit({"phase": "sharded_models", "case": "perf", **perf})
+    assert perf["written"] and any("->" in ln for ln in perf["table"]), perf
+    counted = cells[0]["phi3_counts"]
+    b["prefill_model"] = _roofline(counted["prefill"],
+                                   b["inside"]["prefill_device_ms"])
+    b["train_model"] = _roofline(counted["train"],
+                                 b["train_inside"]["device_ms"])
+    emit({"phase": "sharded_models", "case": "sharded_phi3_model",
+          "prefill": b["prefill_model"], "train": b["train_model"],
+          "counted_s": counted["seconds"]})
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sharded_models", "seconds": rec["seconds"],
+          "dryrun_seconds": [c["seconds"] for c in cells],
+          "nvidia_smi": rec["nvidia_smi"]})
+    return rec
+
+
 def _beside_tune(device, started: list, want: dict) -> dict:
     """What runs while the tune phase waits on its host-bound children:
     phase 20's checks (b)-(e) here, phase 21's (c) and (d) in a child;
@@ -5460,14 +5971,14 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     phase_build()
+    import tempfile
     pacer_cpu = {}
-    try:
-        rows = _phases(device, pacer_cpu)
-    finally:
-        for proc in pacer_cpu.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    with tempfile.TemporaryDirectory() as dry_out:
+        dry = dryrun_children(dry_out)      # phase 22 (a), on the host
+        try:
+            rows = _phases(device, pacer_cpu, dry)
+        finally:
+            _stop(list(pacer_cpu.values()) + dry)
     total = time.perf_counter() - t_start
     emit({"phase": "total", "seconds": total, "budget_s": BUDGET_S,
           "within_budget": total <= BUDGET_S})
@@ -5489,10 +6000,11 @@ def _paths_launches(rows: list, paths: dict) -> None:
             row.setdefault("launches_by_path", {}).update(by)
 
 
-def _phases(device, pacer_cpu: dict) -> list:
-    """Phases 3-21; returns the kernels line's rows.  The pacer's CPU
+def _phases(device, pacer_cpu: dict, dry: list) -> list:
+    """Phases 3-22; returns the kernels line's rows.  The pacer's CPU
     schedules (``pacer_cpu``, a process each) run beside the what-if and
-    fleet phases, after the phases that time eager host work."""
+    fleet phases, after the phases that time eager host work; phase 22's
+    dry run (``dry``, two host processes) from the build on."""
     kern = phase_kernels(device)
     seg = phase_segment_reduce(device)
     phase_paper(device)
@@ -5579,6 +6091,12 @@ def _phases(device, pacer_cpu: dict) -> list:
         for t in ("flow", "mega"):
             paths[f"sharded_dc_rank{r['rank']}_{t}"] = r[t]["launches"]
     _paths_launches(rows, paths)
+    models = phase_sharded_models(device, dry)["sharded_phi3"]
+    for row in rows:       # the sharded model paths launch none of them
+        name = row["name"].replace("_cuda_core", "")
+        row.setdefault("launches_by_path", {}).update({
+            "sharded_phi3_serve": models["launches"][name],
+            "sharded_phi3_train": models["train_launches"][name]})
     return rows
 
 

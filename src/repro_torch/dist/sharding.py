@@ -15,6 +15,12 @@ code runs on a world of one and on the 512-rank production mesh.
   * ``shard(x, *dims)``  -> ``x`` laid out on those placements under the
     ambient mesh (``set_mesh``); the identity outside any mesh
   * ``sweep_mesh(n)`` -> the 1-D run-axis mesh of ``Sweep.run(mesh=)``
+  * the port's own layout helpers for the sharded models, each the
+    identity (or the plain call) outside a mesh: ``pin`` (a layout where
+    the reference has no constraint), ``on_shards`` / ``rowwise`` /
+    ``elementwise`` (ops run on local shards, ``local_map``), ``zeros``
+    (a tensor made shard by shard), ``grad_as_output`` (a gradient laid
+    out as its forward value)
 
 Where torch differs from JAX: torch's SPMD runs one process a rank, and
 a ``DeviceMesh`` spans ranks of the default process group, where the
@@ -184,11 +190,22 @@ _AMBIENT = threading.local()
 @contextlib.contextmanager
 def set_mesh(mesh):
     """``with set_mesh(mesh):`` makes ``mesh`` the calling thread's
-    ambient mesh (``jax.set_mesh``'s scoping); scopes nest."""
+    ambient mesh (``jax.set_mesh``'s scoping); scopes nest, and
+    ``set_mesh(None)`` hides an outer one.  Inside, a plain tensor meets
+    a DTensor as a replicated one (DTensor's ``implicit_replication``,
+    a process-wide switch while any scope is open): model code makes
+    its positions, masks and constants as plain tensors, the same on
+    every rank, as the reference's SPMD program does."""
     stack = _AMBIENT.__dict__.setdefault("stack", [])
     stack.append(mesh)
     try:
-        yield mesh
+        if mesh is None:
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                yield mesh
     finally:
         stack.pop()
 
@@ -211,11 +228,195 @@ def shard(x, *dims):
     mesh = ambient_mesh()
     if mesh is None:
         return x
+    return _to(x, mesh, logical_sharding(dims, tuple(x.shape),
+                                         mesh).placements)
+
+
+def _to(x, mesh, placements):
+    """``x`` on ``placements``: a DTensor redistributed, a plain tensor
+    (the same on every rank, as SPMD code makes it) cut locally, with no
+    collective (``src_data_rank=None``).  The local shard is made
+    contiguous: a shard cut from a replica is a strided view, which the
+    views inside later ops (a product's flattening) cannot take."""
     from torch.distributed.tensor import DTensor, distribute_tensor
-    placements = logical_sharding(dims, tuple(x.shape), mesh).placements
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, placements)
-    return distribute_tensor(x, mesh, placements)
+        y = x.redistribute(mesh, placements)
+    else:
+        y = distribute_tensor(x, mesh, placements, src_data_rank=None)
+    if not y._local_tensor.is_contiguous():
+        y = DTensor.from_local(y.to_local().contiguous(), mesh,
+                               y.placements, run_check=False,
+                               shape=y.shape, stride=y.stride())
+    return y
+
+
+def _view_placements(placements, src_shape, dst_shape) -> tuple:
+    """DTensor placements of a tensor of ``src_shape`` that gives
+    ``placements`` once viewed as ``dst_shape``: each run of dims the
+    view splits or merges maps onto its first dim (a shard of a later
+    dim in the run has no such layout and raises)."""
+    from torch.distributed.tensor import Replicate, Shard
+    groups, i, j = {}, 0, 0
+    while i < len(src_shape) or j < len(dst_shape):
+        si, dj = [i], [j]
+        a = src_shape[i] if i < len(src_shape) else 1
+        c = dst_shape[j] if j < len(dst_shape) else 1
+        while a != c:
+            if a < c:
+                i += 1
+                si.append(i)
+                a *= src_shape[i]
+            else:
+                j += 1
+                dj.append(j)
+                c *= dst_shape[j]
+        for k, d in enumerate(dj):
+            groups[d] = si[0] if k == 0 else None
+        i, j = i + 1, j + 1
+    out = []
+    for p in placements:
+        if isinstance(p, Shard):
+            src = groups.get(p.dim)
+            if src is None:
+                raise ValueError(f"no layout of {tuple(src_shape)} views as "
+                                 f"{tuple(dst_shape)} sharded on dim {p.dim}")
+            p = Shard(src)
+        out.append(p if isinstance(p, Shard) else Replicate())
+    return tuple(out)
+
+
+def pin(x, *dims, shape=None):
+    """Lay ``x`` out by logical dims under the ambient mesh, where the
+    reference has no constraint: the port's own pins (the identity
+    outside a mesh, as ``shard``).  DTensor picks each op's layout
+    greedily, and may split a dim that a later view cannot unflatten
+    (40 heads on a 16-way axis) or give an op a layout it has no rule
+    for; a pin fixes the layout first, and, being a redistribute, fixes
+    the gradient's layout on its way back too.  ``shape``, when given, is
+    the shape ``x`` is viewed as next to the pin (split or merged dims):
+    ``dims`` name that shape's dims, and ``x`` takes the layout that
+    views as theirs."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return x
+    if shape is None:
+        placements = logical_sharding(dims, tuple(x.shape), mesh).placements
+    else:
+        placements = _view_placements(
+            logical_sharding(dims, tuple(shape), mesh).placements,
+            tuple(x.shape), tuple(shape))
+    return _to(x, mesh, placements)
+
+
+def zeros(shape, dims, dtype, device):
+    """``torch.zeros(shape)`` laid out by logical ``dims`` under the
+    ambient mesh, each rank making only its own shard (the caches and
+    states a model allocates); outside a mesh, ``torch.zeros``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    sh = logical_sharding(dims, shape, mesh)
+    local = torch.zeros(sh.shard_shape(shape), dtype=dtype, device=device)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, sh.placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def on_shards(fn, args, placements, out_placements):
+    """``fn(*args)`` on each rank's local shards (``local_map``): the
+    args brought to ``placements`` (one tuple an arg; a plain tensor is
+    cut locally), the outputs DTensors on ``out_placements`` (a list of
+    placements for one output, a tuple of such lists for several).  For ops
+    that are the same math shard by shard and that DTensor has no rule
+    for, or would lay out on its own in a way the next op cannot take.
+    Outside a mesh, ``fn(*args)``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    args = [_to(a, mesh, p) for a, p in zip(args, placements)]
+
+    def local(*a):
+        out = fn(*a)
+        if isinstance(out, torch.Tensor):
+            return out.contiguous()
+        return tuple(o.contiguous() for o in out)
+    return local_map(local, out_placements=out_placements,
+                     in_placements=tuple(placements),
+                     device_mesh=mesh)(*args)
+
+
+def placements_of(x, *, free=()) -> list:
+    """``x``'s placements (all ``Replicate()`` for a plain tensor) under
+    the ambient mesh, with a shard of any tensor dim in ``free`` (dims an
+    op runs along) turned into ``Replicate()``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ambient_mesh()
+    if not isinstance(x, DTensor):
+        return [Replicate() for _ in range(mesh.ndim)]
+    return [Replicate() if isinstance(p, Shard) and p.dim in free else p
+            for p in x.placements]
+
+
+def rowwise(fn, args, n_out: int = 1):
+    """``fn(*args)`` on each rank's batch rows (axis 0 of every arg and
+    output, laid out by the "batch" rule): for ops that run row by row
+    (sorts, searches, cumulative sums, gathers and scatters within a
+    row) and that DTensor has no rule for.  Outside a mesh,
+    ``fn(*args)``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return fn(*args)
+    pl = [logical_sharding(("batch",) + (None,) * (a.dim() - 1),
+                           tuple(a.shape), mesh).placements for a in args]
+    out = list(pl[0])
+    return on_shards(fn, args, pl,
+                     out if n_out == 1 else tuple([out] * n_out))
+
+
+def elementwise(fn, x):
+    """``fn(x)`` shard by shard, ``x``'s layout kept: for elementwise
+    ops that DTensor has no rule for.  Outside a mesh, ``fn(x)``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return fn(x)
+    pl = placements_of(x)
+    return on_shards(fn, (x,), (pl,), pl)
+
+
+class _GradAsOutput(torch.autograd.Function):
+    """Identity forward; backward lays the gradient out as the forward
+    output was laid out (a ``Partial()`` as ``Replicate()``)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Partial, Replicate
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
+                               for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_as_output(y):
+    """``y``, whose gradient takes ``y``'s own layout on its way back:
+    DTensor lays a gradient out by the ops after ``y``, and a product's
+    backward may be handed one it has no rule for (a strided shard of
+    batch x time).  No collective in the forward.  Outside a mesh, or on
+    a plain tensor, or without autograd, ``y`` itself."""
+    from torch.distributed.tensor import DTensor
+    if (ambient_mesh() is None or not isinstance(y, DTensor)
+            or not (torch.is_grad_enabled() and y.requires_grad)):
+        return y
+    return _GradAsOutput.apply(y)
 
 
 def _world_of_one() -> None:

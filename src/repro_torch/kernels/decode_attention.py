@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .flash_attention import (_DTYPES, MAX_HEAD_DIM, _cuda_stream, check_qkv,
-                              refuse_autograd)
+                              refuse_autograd, refuse_dtensor)
 from .ref import decode_attention_ref
 
 #: kernel launches since the last ``reset_launch_counts``
@@ -151,6 +151,7 @@ def decode_attention_plain(q, k, v, valid, *, softcap: float = 0.0,
 def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
                      scale: float | None = None) -> torch.Tensor:
     """q: [b, h, d]; k, v: [b, s, kv, d]; valid: [b, s] -> [b, h, d]."""
+    refuse_dtensor("decode_attention", q, k, v, valid)
     if q.dim() != 3:
         raise ValueError(f"decode_attention: q must be [b, h, d], got "
                          f"{tuple(q.shape)}")

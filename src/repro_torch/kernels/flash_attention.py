@@ -141,6 +141,20 @@ def refuse_autograd(name: str, *tensors) -> None:
             f"differentiates), or call it under torch.no_grad()")
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise on a DTensor: the kernels read ``data_ptr()`` of a local
+    tensor, and on a sharded path (a model under ``set_mesh``) attention
+    takes the plain route, as the reference's dry run sets
+    ``use_pallas=False``.  Neither the kernel nor its plain version runs
+    in its place."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(x, DTensor) for x in tensors):
+        raise TypeError(
+            f"{name}: given a DTensor; a sharded model runs attention on "
+            f"the plain route (cfg.use_pallas=False: the model's _mha / "
+            f"_blockwise_attn), never through the kernels")
+
+
 def _cuda_stream(name: str, dev: torch.device) -> int:
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors on {dev} but the current device "
@@ -152,6 +166,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, softcap: float = 0.0,
                     scale: float | None = None) -> torch.Tensor:
     """q: [b, t, h, d]; k, v: [b, s, kv, d] -> [b, t, h, d] in q's dtype."""
+    refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be [b, t, h, d], got "
                          f"{tuple(q.shape)}")

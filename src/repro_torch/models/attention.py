@@ -26,9 +26,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..dist.sharding import (ambient_mesh, logical_sharding, on_shards, pin,
+                             placements_of, shard, zeros)
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import ParamDef, rope, softcap
+from .layers import ParamDef, dot, rope, softcap
 
 NEG_INF = -1e30
 LOCAL_KINDS = ("local", "moe_local")
@@ -62,9 +64,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
     """kind: 'attn' full cache; 'local' ring buffer bounded by window."""
     length = min(max_len, cfg.window) if kind in LOCAL_KINDS else max_len
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
-                   pos=torch.zeros((), dtype=torch.int32, device=device))
+    dims = cache_spec(cfg, batch, max_len, kind)
+    return KVCache(k=zeros(shape, dims.k, dtype, device),
+                   v=zeros(shape, dims.v, dtype, device),
+                   pos=zeros((), dims.pos, torch.int32, device))
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int, kind: str):
@@ -77,8 +80,45 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int, kind: str):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('btd,dhk->bthk', x, w)."""
     b, t, _ = x.shape
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).reshape(
-        b, t, w.shape[1], w.shape[2])
+    d, h, hd = w.shape
+    # port pins: the heads' layout on the flat side of each view, so
+    # that neither the view nor its gradient's splits a dim unevenly
+    w2 = pin(w.to(x.dtype).reshape(d, h * hd), "fsdp", "heads", None,
+             shape=(d, h, hd))
+    y = pin(dot(x, w2), "batch", "seq", "act_heads", None, shape=(b, t, h, hd))
+    return y.reshape(b, t, h, hd)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bthk,hkd->btd', out, wo)."""
+    b, t, h, hd = out.shape
+    o2 = pin(out.reshape(b, t, h * hd), "batch", "seq", "act_heads", None,
+             shape=(b, t, h, hd))
+    w2 = pin(wo.to(out.dtype).reshape(h * hd, wo.shape[-1]), "heads", None,
+             "fsdp", shape=wo.shape)
+    return dot(o2, w2)
+
+
+def _on_heads(fn, q, k, v, mask):
+    """``fn(q, k, v, mask)``, an attention core, on each rank's batch rows
+    and KV-head groups (``on_shards``): heads split only where the KV
+    heads split, so each rank holds whole groups, and the mask
+    ([b | 1, t, s] or None) splits with the batch.  The plain tensor
+    ops of the cores (grouped einsums, online softmax) are the same math
+    shard by shard.  Outside a mesh, ``fn(q, k, v, mask)``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return fn(q, k, v, mask)
+    b, t, _, hd = q.shape
+    heads = logical_sharding(("batch", None, "act_heads", None),
+                             (b, t, k.shape[2], hd), mesh).placements
+    if mask is None:
+        return on_shards(lambda a, b_, c: fn(a, b_, c, None), (q, k, v),
+                         (heads, heads, heads), list(heads))
+    mpl = logical_sharding(("batch", None, None), tuple(mask.shape),
+                           mesh).placements
+    return on_shards(fn, (q, k, v, mask), (heads, heads, heads, mpl),
+                     list(heads))
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -176,17 +216,23 @@ def attention(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    # attention.py:173 shard(q, "batch", "seq", "act_heads", None)
+    q = shard(q, "batch", "seq", "act_heads", None)
 
     def _self_attn(qq, kk, vv):
         if cfg.use_pallas:
             return ops.attention(qq, kk, vv, causal=True, window=window,
                                  softcap=cfg.softcap_attn, scale=_scale(cfg))
         if cfg.attn_impl == "blockwise":
-            return _blockwise_attn(qq, kk, vv, cfg, causal=True,
-                                   window=window)
+            return _on_heads(
+                lambda a, b_, c, _m: _blockwise_attn(a, b_, c, cfg,
+                                                     causal=True,
+                                                     window=window),
+                qq, kk, vv, None)
         mask = _causal_mask(qq.shape[1], kk.shape[1], 0, window,
                             qq.device)[None]
-        return _mha(qq, kk, vv, cfg, mask)
+        return _on_heads(lambda a, b_, c, m: _mha(a, b_, c, cfg, m),
+                         qq, kk, vv, mask)
 
     if cache is None:
         out = _self_attn(q, k, v)
@@ -195,40 +241,72 @@ def attention(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         cache = _cache_write_prefill(cache, k, v, kind, cfg)
     else:
         cache = _cache_write_step(cache, k, v, kind, cfg)
+        # attention.py:197-198 shard(cache.k / cache.v, "cache_batch",
+        # "kv_seq", None, None)
+        ck = shard(cache.k, "cache_batch", "kv_seq", None, None)
+        cv = shard(cache.v, "cache_batch", "kv_seq", None, None)
         valid = _decode_mask(cache, kind, cfg)       # [1, clen]
         b = x.shape[0]
         if cfg.use_pallas:
             out = ops.decode_attn(
-                q[:, 0], cache.k, cache.v, valid.expand(b, valid.shape[-1]),
+                q[:, 0], ck, cv, valid.expand(b, valid.shape[-1]),
                 softcap=cfg.softcap_attn, scale=_scale(cfg))[:, None]
         else:
             mask = valid[:, None, :].expand(b, 1, valid.shape[-1])
-            out = _mha(q, cache.k, cache.v, cfg, mask)
-    b, t, h, hd = out.shape
-    wo = p["wo"].to(x.dtype)
-    y = out.reshape(b, t, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
-    return y, cache
+            out = _on_heads(lambda a, b_, c, m: _mha(a, b_, c, cfg, m),
+                            q, ck, cv, mask)
+    # attention.py:211 shard(out, "batch", "seq", "act_heads", None)
+    out = shard(out, "batch", "seq", "act_heads", None)
+    return _out_proj(out, p["wo"].to(x.dtype)), cache
 
 
 # Ring-buffer invariant: the K/V of the token at absolute position ``a``
 # lives at slot ``a % clen``.  Prefill and decode both honour it, so a
 # prefill of any length can be continued by single-token decode steps.
 
+def _in_place(write, ck, cv, *args):
+    """``write(ck, cv, *args)``, which writes the cache tensors in place
+    and returns them: under a mesh on each rank's shards, the writes'
+    operands laid out as the cache is (DTensor has no in-place rule for
+    these index writes), so the returned DTensors share the cache's
+    storage."""
+    if ambient_mesh() is None:
+        return write(ck, cv, *args)
+    pl = placements_of(ck)
+    rep = [placements_of(a, free=range(a.dim())) for a in args[2:]]
+    return on_shards(write, (ck, cv) + args, [pl] * 4 + rep, (pl, pl))
+
+
+def _write_prefill(ck, cv, k, v, local: bool):
+    t, clen = k.shape[1], ck.shape[1]
+    if local and t > clen:
+        slots = (t - clen + torch.arange(clen, device=k.device)) % clen
+        ck[:, slots] = k[:, -clen:]                  # last `window` tokens
+        cv[:, slots] = v[:, -clen:]
+    else:
+        ck[:, :t] = k
+        cv[:, :t] = v
+    return ck, cv
+
+
 def _cache_write_prefill(cache: KVCache, k, v, kind: str,
                          cfg: ModelConfig) -> KVCache:
     t = k.shape[1]
     clen = cache.k.shape[1]
-    if kind in LOCAL_KINDS and t > clen:
-        slots = (t - clen + torch.arange(clen, device=k.device)) % clen
-        cache.k[:, slots] = k[:, -clen:]             # last `window` tokens
-        cache.v[:, slots] = v[:, -clen:]
-    else:
-        if t > clen:
-            raise ValueError(f"prefill of {t} tokens overflows a cache of "
-                             f"{clen} slots (max_len)")
-        cache.k[:, :t] = k
-        cache.v[:, :t] = v
-    return KVCache(k=cache.k, v=cache.v, pos=cache.pos + t)
+    local = kind in LOCAL_KINDS
+    if not local and t > clen:
+        raise ValueError(f"prefill of {t} tokens overflows a cache of "
+                         f"{clen} slots (max_len)")
+    ck, cv = _in_place(lambda a, b_, kk, vv: _write_prefill(a, b_, kk, vv,
+                                                            local),
+                       cache.k, cache.v, k, v)
+    return KVCache(k=ck, v=cv, pos=cache.pos + t)
+
+
+def _write_step(ck, cv, k, v, slot):
+    ck.index_copy_(1, slot, k)
+    cv.index_copy_(1, slot, v)
+    return ck, cv
 
 
 def _cache_write_step(cache: KVCache, k, v, kind: str,
@@ -241,9 +319,8 @@ def _cache_write_step(cache: KVCache, k, v, kind: str,
     else:
         slot = torch.clamp(cache.pos, max=clen - 1)
     slot = slot.reshape(1).long()
-    cache.k.index_copy_(1, slot, k)
-    cache.v.index_copy_(1, slot, v)
-    return KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
+    ck, cv = _in_place(_write_step, cache.k, cache.v, k, v, slot)
+    return KVCache(k=ck, v=cv, pos=cache.pos + 1)
 
 
 def _decode_mask(cache: KVCache, kind: str, cfg: ModelConfig):
@@ -268,10 +345,9 @@ def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     k, v = enc_kv
-    out = _mha(q, k, v, cfg, None)
-    b, t, h, hd = out.shape
-    wo = p["wo"].to(x.dtype)
-    return out.reshape(b, t, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+    out = _on_heads(lambda a, b_, c, m: _mha(a, b_, c, cfg, m), q, k, v,
+                    None)
+    return _out_proj(out, p["wo"].to(x.dtype))
 
 
 def encode_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):

@@ -21,7 +21,8 @@ One stated difference: ``decode`` indexes ``dec_pos`` (4096 rows) by
 position.  The reference's ``jnp.take`` fills a row past the table with
 NaN, but an out-of-range index on the card kills the CUDA context, so
 ``prefill`` raises ``ValueError`` on the host when ``max_len`` exceeds
-the table.
+the table (but for fake tensors, which hold no rows: the dry run traces
+the reference's prefill_32k cell).
 
 Entry points: ``param_defs``, ``encode``, ``decode``, ``forward``,
 ``prefill``, ``decode_step``, ``init_dec_caches``, ``dec_cache_specs``,
@@ -33,7 +34,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ..dist.sharding import shard
 from . import attention as attn_mod
 from .config import ModelConfig
 from .layers import (ParamDef, apply_logits, apply_mlp, apply_norm,
@@ -79,16 +82,18 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     nk, eps = cfg.norm_kind, cfg.norm_eps
     s = frames.shape[1]
     x = frames + params["enc_pos"][:s][None].to(frames.dtype)
+    # encdec.py:75 shard(x, "batch", "seq", "act_embed")
+    x = shard(x, "batch", "seq", "act_embed")
     for bp in params["enc"]:
         h = apply_norm(bp["norm1"], x, nk, eps)
         q = attn_mod._proj(h, bp["attn"]["wq"])
         k, v = attn_mod.encode_kv(bp["attn"], cfg, h)
         if "bq" in bp["attn"]:
             q = q + bp["attn"]["bq"].to(h.dtype)
-        out = attn_mod._mha(q, k, v, cfg, None)      # bidirectional
-        b, t, nh, hd = out.shape
-        wo = bp["attn"]["wo"].to(h.dtype)
-        x = x + out.reshape(b, t, nh * hd) @ wo.reshape(nh * hd, -1)
+        out = attn_mod._on_heads(                     # bidirectional
+            lambda a, b_, c, m: attn_mod._mha(a, b_, c, cfg, m), q, k, v,
+            None)
+        x = x + attn_mod._out_proj(out, bp["attn"]["wo"].to(h.dtype))
         x = x + apply_mlp(bp["mlp"], apply_norm(bp["norm2"], x, nk, eps),
                           cfg.mlp_kind)
     return apply_norm(params["enc_norm"], x, nk, eps)
@@ -163,7 +168,8 @@ def prefill(params, cfg: ModelConfig, frames, tokens, max_len: int,
     instead of allocating a new set.  Raises ``ValueError`` when
     ``max_len`` is past the decoder's position table."""
     rows = params["dec_pos"].shape[0]
-    if max_len > rows:
+    # a trace on fake tensors (the dry run) reads no row
+    if max_len > rows and not is_fake(tokens):
         raise ValueError(f"max_len {max_len} is past the decoder's "
                          f"{rows} learned positions (dec_pos)")
     enc_out = encode(params, cfg, frames)

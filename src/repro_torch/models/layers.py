@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.fluid import resolve_device
+from ..dist.sharding import grad_as_output, shard
 
 
 class ParamDef(NamedTuple):
@@ -114,6 +115,12 @@ def param_shapes(defs):
     return _map_defs(lambda d: tuple(d.shape), defs)
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; on a sharded path its gradient is laid out as the
+    product was (``grad_as_output``)."""
+    return grad_as_output(x @ w)
+
+
 # ---------------------------------------------------------------------------
 # normalisation
 # ---------------------------------------------------------------------------
@@ -161,7 +168,8 @@ def embed_lookup(p: dict, ids: torch.Tensor, scale: bool,
     if scale:
         # a device fill, not a host copy: capturable in a CUDA graph
         x = x * torch.full((), math.sqrt(d), dtype=x.dtype, device=x.device)
-    return x
+    # layers.py:111 shard(x, "batch", "seq", "act_embed")
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def logits_defs(vocab: int, d_model: int, tied: bool) -> dict:
@@ -173,7 +181,7 @@ def logits_defs(vocab: int, d_model: int, tied: bool) -> dict:
 def apply_logits(p: dict, embed_p: dict, x: torch.Tensor, tied: bool,
                  softcap: float) -> torch.Tensor:
     w = embed_p["table"].T if tied else p["out"]
-    logits = x @ w.to(x.dtype)
+    logits = dot(x, w.to(x.dtype))
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits.float()
@@ -218,13 +226,17 @@ def mlp_defs(d_model: int, d_ff: int, kind: str) -> dict:
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
-        h = x @ p["wi"].to(x.dtype)
-        g = x @ p["wg"].to(x.dtype)
+        h = dot(x, p["wi"].to(x.dtype))
+        g = dot(x, p["wg"].to(x.dtype))
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-        return (h * act) @ p["wo"].to(x.dtype)
-    h = F.gelu(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype),
+        # layers.py:153 shard(h * act, "batch", "seq", "mlp")
+        h = shard(h * act, "batch", "seq", "mlp")
+        return dot(h, p["wo"].to(x.dtype))
+    h = F.gelu(dot(x, p["wi"].to(x.dtype)) + p["bi"].to(x.dtype),
                approximate="tanh")
-    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)
+    # layers.py:157 shard(h, "batch", "seq", "mlp")
+    h = shard(h, "batch", "seq", "mlp")
+    return dot(h, p["wo"].to(x.dtype)) + p["bo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,9 @@ dispatch paths with the same drops, as in the reference:
 
 Routing is ``jax.lax.top_k``'s: the k largest router probabilities, a
 tie to the lower expert index (a stable descending sort gives that).
-``cfg.moe_tokens`` and the reference's ``shard`` constraints place
-tokens on a mesh; the models run whole on one rank, so they are left
-out.
+``cfg.moe_tokens`` and the ``shard`` calls (the reference's, the
+identity outside a mesh: ``repro_torch.dist.sharding.shard``) place
+tokens and expert slots on a mesh.
 """
 
 from __future__ import annotations
@@ -29,8 +29,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import (ambient_mesh, grad_as_output, logical_sharding,
+                             on_shards, pin, rowwise, shard)
 from .config import ModelConfig
-from .layers import ParamDef, apply_mlp, mlp_defs
+from .layers import ParamDef, apply_mlp, dot, mlp_defs
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -65,7 +67,10 @@ def top_k(probs: torch.Tensor, k: int):
 def route(p: dict, cfg: ModelConfig, x: torch.Tensor):
     """(router probabilities [b, t, e] float32, normalised gate weights
     [b, t, k] float32, expert indices [b, t, k] int64)."""
-    gate_logits = (x @ p["router"].to(x.dtype)).float()
+    # a port pin: the routing is row by row, its layout (and its
+    # gradient's) the batch's alone
+    gate_logits = pin(dot(x, p["router"].to(x.dtype)).float(),
+                      "batch", "seq", None)
     probs = torch.softmax(gate_logits, dim=-1)
     gate_w, gate_idx = top_k(probs, cfg.moe.top_k)
     gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
@@ -77,11 +82,21 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
     m = cfg.moe
     e = m.n_experts
     c = capacity_of(cfg, x.shape[1])
+    gathered = cfg.moe_tokens == "gathered"
+    if gathered:
+        # moe.py:59 shard(x, "batch", None, "act_embed"): the sequence
+        # gathered once at entry
+        x = shard(x, "batch", None, "act_embed")
     probs, gate_w, gate_idx = route(p, cfg, x)
-    dispatch = _dispatch_sort if cfg.moe_impl == "sort" else _dispatch_onehot
+    sort = cfg.moe_impl == "sort"
+    dispatch = _dispatch_sort if sort else _dispatch_onehot
     y = dispatch(p, cfg, x, gate_w, gate_idx, c)
     if m.n_shared:
         y = y + apply_mlp(p["shared"], x, "swiglu")
+    if gathered and not sort:
+        # moe.py:109 shard(y, "batch", "seq", "act_embed"): scattered
+        # back to sequence shards (the one-hot path only, as there)
+        y = shard(y, "batch", "seq", "act_embed")
     # Switch-style load-balancing aux loss
     me = probs.mean((0, 1))                                  # [e]
     ce = F.one_hot(gate_idx[..., 0], e).float().mean((0, 1))
@@ -101,35 +116,98 @@ def onehot_slots(gate_idx: torch.Tensor, e: int, c: int):
     return pos, pos < c
 
 
-def _dispatch_onehot(p, cfg, x, gate_w, gate_idx, c: int):
-    b, t, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
+def _onehot_tensors(gate_w, gate_idx, e: int, c: int, dtype):
+    """The one-hot dispatch and combine tensors [b, t, e, c], row by
+    row."""
+    b, t, k = gate_idx.shape
     pos, keep = onehot_slots(gate_idx, e, c)
-    keep = keep.to(x.dtype)
-    experts = torch.arange(e, device=x.device)
-    slots = torch.arange(c, device=x.device)
+    keep = keep.to(dtype)
+    experts = torch.arange(e, device=gate_idx.device)
+    slots = torch.arange(c, device=gate_idx.device)
     # accumulate dispatch/combine over the small k axis to bound temps;
     # every (e, c) slot receives at most one nonzero term, so the sums in
     # the activation dtype are exact
-    disp = torch.zeros((b, t, e, c), dtype=x.dtype, device=x.device)
-    comb = torch.zeros((b, t, e, c), dtype=x.dtype, device=x.device)
+    disp = torch.zeros((b, t, e, c), dtype=dtype, device=gate_idx.device)
+    comb = torch.zeros((b, t, e, c), dtype=dtype, device=gate_idx.device)
     for kk in range(k):
-        sel = ((gate_idx[:, :, kk, None] == experts).to(x.dtype)[..., None]
-               * (pos[:, :, kk, None] == slots).to(x.dtype)[:, :, None, :]
+        sel = ((gate_idx[:, :, kk, None] == experts).to(dtype)[..., None]
+               * (pos[:, :, kk, None] == slots).to(dtype)[:, :, None, :]
                * keep[:, :, kk, None, None])
         disp = disp + sel
-        comb = comb + sel * gate_w[:, :, kk, None, None].to(x.dtype)
-    xe = torch.einsum("btec,btd->becd", disp, x)             # dispatch
+        comb = comb + sel * gate_w[:, :, kk, None, None].to(dtype)
+    return disp, comb
+
+
+def _combine_onehot(comb, ye):
+    return torch.einsum("btec,becd->btd", comb, ye)
+
+
+def _dispatch_onehot(p, cfg, x, gate_w, gate_idx, c: int):
+    e = cfg.moe.n_experts
+    # row by row under a mesh: the one-hot builds and the int64 cumsum
+    # have no DTensor rule, and the dispatch contracts a row's tokens
+    disp, comb = rowwise(
+        lambda w, i: _onehot_tensors(w, i, e, c, x.dtype),
+        (gate_w, gate_idx), n_out=2)
+    xe = rowwise(lambda dd, xx: torch.einsum("btec,btd->becd", dd, xx),
+                 (disp, x))                                  # dispatch
+    # moe.py:101 shard(xe, "batch", "experts", None, "act_embed")
+    xe = shard(xe, "batch", "experts", None, "act_embed")
     ye = _expert_ffn(p, cfg, xe)
-    return torch.einsum("btec,becd->btd", comb, ye)          # combine
+    mesh = ambient_mesh()
+    if mesh is None:
+        return _combine_onehot(comb, ye)                     # combine
+    # the combine on each rank's rows and experts: a partial sum over the
+    # experts' mesh axis, reduced where the next op needs it
+    from torch.distributed.tensor import Partial, Shard
+    pc = logical_sharding(("batch", None, "experts", None),
+                          tuple(comb.shape), mesh).placements
+    pe = logical_sharding(("batch", "experts", None, None),
+                          tuple(ye.shape), mesh).placements
+    out = [Partial() if p == Shard(2) else p for p in pc]
+    return on_shards(_combine_onehot, (comb, ye), (pc, pe), out)
+
+
+def _expert_mm(eq: str, a, w, a_dims, w_dims, out_dims):
+    """``torch.einsum(eq, a, w)``, under a mesh on each rank's rows and
+    experts (``on_shards``: DTensor's einsum views a shard's local
+    tensor by the global strides, which a sharded layout breaks): the
+    weight gathered over its fsdp axis, an expert's hidden dim split
+    where the experts are not; a hidden dim split on both sides of a
+    contraction leaves a partial sum."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return torch.einsum(eq, a, w)
+    from torch.distributed.tensor import Partial, Shard
+    pa = logical_sharding(a_dims, tuple(a.shape), mesh).placements
+    pw = logical_sharding(w_dims, tuple(w.shape), mesh).placements
+    ins, o = eq.split("->")
+    la, lw = ins.split(",")
+    out_shape = tuple(a.shape[la.index(c)] if c in la else
+                      w.shape[lw.index(c)] for c in o)
+    po = list(logical_sharding(out_dims, out_shape, mesh).placements)
+    for i, (x, y) in enumerate(zip(pa, pw)):
+        if (isinstance(x, Shard) and isinstance(y, Shard)
+                and la[x.dim] == lw[y.dim] and la[x.dim] not in o):
+            po[i] = Partial()
+    return grad_as_output(on_shards(
+        lambda u, v: torch.einsum(eq, u, v), (a, w), (pa, pw), po))
 
 
 def _expert_ffn(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     """SwiGLU per expert: xe [b, e, c, d] -> [b, e, c, d]."""
-    hi = torch.einsum("becd,edf->becf", xe, p["wi"].to(xe.dtype))
-    hg = torch.einsum("becd,edf->becf", xe, p["wg"].to(xe.dtype))
-    return torch.einsum("becf,efd->becd", F.silu(hg) * hi,
-                        p["wo"].to(xe.dtype))
+    rows, hid = ("batch", "experts", None, None), ("batch", "experts", None,
+                                                   "mlp")
+    hi = _expert_mm("becd,edf->becf", xe, p["wi"].to(xe.dtype), rows,
+                    ("experts", None, "mlp"), hid)
+    hg = _expert_mm("becd,edf->becf", xe, p["wg"].to(xe.dtype), rows,
+                    ("experts", None, "mlp"), hid)
+    # moe.py:122 shard(silu(hg) * hi, "batch", "experts", None, "mlp")
+    he = shard(F.silu(hg) * hi, "batch", "experts", None, "mlp")
+    ye = _expert_mm("becf,efd->becd", he, p["wo"].to(xe.dtype), hid,
+                    ("experts", "mlp", None), rows)
+    # moe.py:125 shard(ye, "batch", "experts", None, "act_embed")
+    return shard(ye, "batch", "experts", None, "act_embed")
 
 
 def sort_slots(gate_idx: torch.Tensor, e: int, c: int):
@@ -149,10 +227,11 @@ def sort_slots(gate_idx: torch.Tensor, e: int, c: int):
     return order, slot, keep
 
 
-def _dispatch_sort(p, cfg, x, gate_w, gate_idx, c: int):
-    """Gather into expert slots and back; no [b, t, e, c] tensors."""
+def _sort_gather(x, gate_w, gate_idx, e: int, c: int):
+    """The sort dispatch's gather into expert slots, row by row: (xe [b,
+    e * c, d], slot, keep, the pairs' gate weights, the pair order)."""
     b, t, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    k = gate_idx.shape[-1]
     tk = t * k
     order, slot, keep = sort_slots(gate_idx, e, c)
     stok = order // k                                # token of each pair
@@ -163,20 +242,45 @@ def _dispatch_sort(p, cfg, x, gate_w, gate_idx, c: int):
     # the kept slots are distinct; dropped pairs all write zeros to the
     # trash slot e * c
     xe[rows, slot] = xs
-    ye = _expert_ffn(p, cfg, xe[:, :e * c].reshape(b, e, c, d))
-    flat = ye.reshape(b, e * c, d)
+    return xe[:, :e * c], slot, keep, sw, order
+
+
+def _sort_combine(flat, slot, keep, sw, order, t: int):
+    """Each token's k expert outputs gathered back and summed, row by
+    row: flat [b, e * c, d] -> [b, t, d]."""
+    b, ec, d = flat.shape
+    tk = order.shape[1]
+    k = tk // t
+    rows = torch.arange(b, device=flat.device)[:, None]
     vals = torch.where(keep[..., None],
-                       flat[rows, torch.clamp(slot, max=e * c - 1)], 0.0)
-    vals = vals * sw[..., None].to(x.dtype)                  # [b, tk, d]
+                       flat[rows, torch.clamp(slot, max=ec - 1)], 0.0)
+    vals = vals * sw[..., None].to(flat.dtype)               # [b, tk, d]
     # each token's k pairs, in the order they sit in the sorted list
     # (ascending expert): their positions there, sorted
     at = torch.empty_like(order)
-    at.scatter_(1, order, torch.arange(tk, device=x.device).expand(b, tk))
+    at.scatter_(1, order, torch.arange(tk, device=flat.device).expand(b, tk))
     at = torch.sort(at.reshape(b, t, k), dim=-1).values
-    y = torch.zeros((b, t, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros((b, t, d), dtype=flat.dtype, device=flat.device)
     for j in range(k):
         y = y + vals[rows, at[:, :, j]]
     return y
+
+
+def _dispatch_sort(p, cfg, x, gate_w, gate_idx, c: int):
+    """Gather into expert slots and back; no [b, t, e, c] tensors.  Under
+    a mesh the sort, the searches and the gathers and scatters run on
+    each rank's rows (no DTensor rule for ``searchsorted`` or for index
+    writes)."""
+    b, t, d = x.shape
+    e = cfg.moe.n_experts
+    xe, slot, keep, sw, order = rowwise(
+        lambda xx, w, i: _sort_gather(xx, w, i, e, c), (x, gate_w, gate_idx),
+        n_out=5)
+    # moe.py:159 shard(xe, "batch", "experts", None, "act_embed")
+    xe = shard(xe.reshape(b, e, c, d), "batch", "experts", None, "act_embed")
+    ye = _expert_ffn(p, cfg, xe)
+    return rowwise(lambda f, s_, k_, w, o: _sort_combine(f, s_, k_, w, o, t),
+                   (ye.reshape(b, e * c, d), slot, keep, sw, order))
 
 
 __all__ = ["apply_moe", "capacity_of", "moe_defs", "onehot_slots", "route",

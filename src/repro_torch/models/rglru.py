@@ -25,8 +25,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import elementwise, pin, shard, zeros
 from .config import ModelConfig
-from .layers import ParamDef
+from .layers import ParamDef, dot
 from .scan import associative_scan, causal_conv
 
 C_SCALE = 8.0   # the Griffin `c` constant
@@ -57,8 +58,9 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype,
                      device) -> RGLRUState:
     w, cw = cfg.lru_width, cfg.rglru.conv_width
     return RGLRUState(
-        conv=torch.zeros((batch, cw - 1, w), dtype=dtype, device=device),
-        h=torch.zeros((batch, w), dtype=torch.float32, device=device))
+        conv=zeros((batch, cw - 1, w), rglru_state_spec(cfg).conv, dtype,
+                   device),
+        h=zeros((batch, w), rglru_state_spec(cfg).h, torch.float32, device))
 
 
 def rglru_state_spec(cfg: ModelConfig) -> RGLRUState:
@@ -70,14 +72,20 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 state: RGLRUState | None = None):
     """x: [b, t, d] -> (y, new_state)."""
     b, t, _ = x.shape
-    gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
-    xi = x @ p["in_x"].to(x.dtype)
+    gate = F.gelu(dot(x, p["in_gate"].to(x.dtype)), approximate="tanh")
+    xi = dot(x, p["in_x"].to(x.dtype))
+    # rglru.py:70 shard(xi, "batch", "seq", "mlp")
+    xi = shard(xi, "batch", "seq", "mlp")
     xc, new_conv = causal_conv(xi, None if state is None else state.conv,
                                p["conv_w"], p["conv_b"])
+    # port pins: the conv output and the gate in xi's layout
+    xc = pin(xc, "batch", "seq", "mlp")
+    gate = pin(gate, "batch", "seq", "mlp")
 
-    r = torch.sigmoid((xc @ p["w_r"].to(xc.dtype)).float())
-    i = torch.sigmoid((xc @ p["w_i"].to(xc.dtype)).float())
-    log_a0 = F.logsigmoid(p["lam"].float())                  # log a
+    r = torch.sigmoid(dot(xc, p["w_r"].to(xc.dtype)).float())
+    i = torch.sigmoid(dot(xc, p["w_i"].to(xc.dtype)).float())
+    # log a (no DTensor rule for log_sigmoid: shard by shard)
+    log_a0 = elementwise(F.logsigmoid, p["lam"].float())
     a = torch.exp(C_SCALE * r * log_a0)                      # a^(c r)
     gated = i * xc.float()
     u = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * gated
@@ -93,7 +101,7 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
         h = hs[:, -1]
 
     y = hs.to(x.dtype) * gate
-    out = y @ p["out"].to(x.dtype)
+    out = dot(y, p["out"].to(x.dtype))
     return out, RGLRUState(conv=new_conv.to(x.dtype), h=h)
 
 

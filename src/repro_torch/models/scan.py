@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import ambient_mesh, on_shards, placements_of
+
 
 def _combine(lhs, rhs):
     a1, u1 = lhs
@@ -29,11 +31,21 @@ def _combine(lhs, rhs):
 
 def associative_scan(a: torch.Tensor, u: torch.Tensor):
     """Inclusive scan of the pairs ``(a, u)`` along axis 1: returns
-    ``(prod_{s<=t} a_s, h_t)`` for every t, in the inputs' dtype."""
+    ``(prod_{s<=t} a_s, h_t)`` for every t, in the inputs' dtype.  Under
+    a mesh it runs on each rank's shards (the recursion's strided slices
+    and interleaving writes have no DTensor rule), axis 1 whole on each
+    rank: the recurrence is elementwise in every other axis."""
+    if ambient_mesh() is not None:
+        pl = placements_of(a, free=(1,))
+        return on_shards(_scan, (a, u), (pl, pl), (pl, pl))
+    return _scan(a, u)
+
+
+def _scan(a: torch.Tensor, u: torch.Tensor):
     n = a.shape[1]
     if n < 2:
         return a, u
-    odd = associative_scan(*_combine((a[:, 0:-1:2], u[:, 0:-1:2]),
+    odd = _scan(*_combine((a[:, 0:-1:2], u[:, 0:-1:2]),
                                      (a[:, 1::2], u[:, 1::2])))
     if n % 2 == 0:
         even = _combine((odd[0][:, :-1], odd[1][:, :-1]),

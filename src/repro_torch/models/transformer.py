@@ -53,6 +53,7 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from ..dist.sharding import shard
 from .config import ModelConfig
 from .layers import (apply_logits, apply_mlp, apply_norm, embed_defs,
                      embed_lookup, logits_defs, masked_ce, mlp_defs,
@@ -255,8 +256,9 @@ def _positions(b: int, t: int, start: int, device) -> torch.Tensor:
 def _embed_in(params, cfg: ModelConfig, tokens, embeds):
     if embeds is not None:
         return embeds
-    return embed_lookup(params["embed"], tokens, cfg.embed_scale,
-                        cfg.d_model)
+    x = embed_lookup(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
+    # transformer.py:259 shard(x, "batch", "seq", "act_embed")
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
@@ -304,7 +306,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     in place (K/V rows, recurrent states); each returned ``KVCache``
     carries ``pos + 1``.  No host read, so the step can be captured as a
     CUDA graph."""
-    x = embed_lookup(params["embed"], token, cfg.embed_scale, cfg.d_model)
+    x = _embed_in(params, cfg, token, None)
     b = x.shape[0]
     positions = pos.to(torch.int32).expand(b, 1)
     x, caches, _ = _trunk(params, cfg, x, positions, caches)

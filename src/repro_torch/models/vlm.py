@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from . import transformer
+from ..dist.sharding import shard
 from .config import ModelConfig
-from .layers import (ParamDef, apply_norm, embed_lookup, masked_nll,
+from .layers import (ParamDef, apply_norm, dot, embed_lookup, masked_nll,
                      norm_defs)
 
 
@@ -45,9 +46,9 @@ def project_patches(params, cfg: ModelConfig,
     ``cfg.norm_kind`` is; GELU in its tanh form, ``jax.nn.gelu``'s)."""
     pp = params["projector"]
     x = apply_norm(pp["norm"], patches, "ln", cfg.norm_eps)
-    x = x @ pp["w1"].to(x.dtype)
+    x = dot(x, pp["w1"].to(x.dtype))
     x = F.gelu(x + pp["b1"].to(x.dtype), approximate="tanh")
-    x = x @ pp["w2"].to(x.dtype)
+    x = dot(x, pp["w2"].to(x.dtype))
     return x + pp["b2"].to(x.dtype)
 
 
@@ -57,7 +58,9 @@ def fuse_inputs(params, cfg: ModelConfig, patches, tokens) -> torch.Tensor:
     img = project_patches(params, cfg, patches)
     txt = embed_lookup(params["embed"], tokens, cfg.embed_scale,
                        cfg.d_model)
-    return torch.cat([img.to(txt.dtype), txt], dim=1)
+    x = torch.cat([img.to(txt.dtype), txt], dim=1)
+    # vlm.py:52 shard(x, "batch", "seq", "act_embed")
+    return shard(x, "batch", "seq", "act_embed")
 
 
 def forward(params, cfg: ModelConfig, patches, tokens):

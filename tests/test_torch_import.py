@@ -19,6 +19,10 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    # the reference's dry run writes XLA_FLAGS at import, into a worker
+    # that imported it; a child must start without it to show that the
+    # port's modules write none
+    env.pop("XLA_FLAGS", None)
     return env
 
 
@@ -44,8 +48,12 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.train.step, repro_torch.train.loop, "
             "repro_torch.launch.train, repro_torch.dist, "
             "repro_torch.dist.sharding, repro_torch.dist.pipeline, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.perf; "
             "from repro_torch.serve import make_serve_step, whatif; "
+            "import os, torch.distributed as dist; "
+            "assert not dist.is_initialized(); "
+            "assert 'XLA_FLAGS' not in os.environ; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); assert not bad")
@@ -71,6 +79,25 @@ def test_package_names_match_reference(pkg):
         assert port.__all__ == ref.__all__
     for name in port.__all__:
         assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize("mod", ["dryrun", "perf"])
+def test_launch_module_names_match_reference(mod):
+    """``repro_torch.launch.<mod>`` defines the reference module's
+    functions (read from its source: importing it writes XLA_FLAGS)."""
+    import importlib
+    path = os.path.join(ROOT, "src", "repro", "launch", f"{mod}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    port = importlib.import_module(f"repro_torch.launch.{mod}")
+    # the reference's lower-and-compile is the port's ``_trace_cell``;
+    # its batch builder ``_abstract_inputs`` is part of ``abstract_cell``
+    names -= {"_compile_cell", "_abstract_inputs"}
+    assert callable(port.__dict__.get(
+        "_trace_cell" if mod == "dryrun" else "measure"))
+    assert names and all(callable(getattr(port, n, None)) for n in names), (
+        sorted(n for n in names if not hasattr(port, n)))
 
 
 def test_serving_needs_a_gpu_or_the_cpu_by_request(monkeypatch):
