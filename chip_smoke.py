@@ -326,9 +326,25 @@ BUDGET_S = 600
 _T0 = time.perf_counter()
 
 
+#: (phase, at_s) of every phase line printed, for the total line
+_EMITTED: list = []
+
+
 def emit(obj) -> None:
-    print(json.dumps({**obj, "at_s": time.perf_counter() - _T0}),
-          flush=True)
+    at = time.perf_counter() - _T0
+    if "phase" in obj:
+        _EMITTED.append((obj["phase"], at))
+    print(json.dumps({**obj, "at_s": at}), flush=True)
+
+
+def _phase_seconds() -> dict:
+    """Seconds from each phase line back to the line before it, summed
+    by phase name: where the script's wall went."""
+    out, prev = {}, 0.0
+    for name, at in _EMITTED:
+        out[name] = out.get(name, 0.0) + at - prev
+        prev = at
+    return out
 
 
 def _kmod(name: str):
@@ -378,6 +394,31 @@ def _expect_routes(got: dict, where: str, *, tensor_core: int = 0,
     """Exactly these flash_attention launches on each route."""
     want = {"tensor_core": tensor_core, "cuda_core": cuda_core}
     assert got == want, (where, got, want)
+
+
+def plans() -> dict:
+    """decode_attention's launches by plan kernel since ``reset_counts``."""
+    return dict(_kmod("decode_attention").PLANS)
+
+
+def _expect_plans(got: dict, where: str, *, split: int = 0,
+                  group: int = 0):
+    """Exactly these decode_attention launches on each kernel."""
+    want = {"split": split, "group": group}
+    assert got == want, (where, got, want)
+
+
+def _decode(q, k, v, valid, **kw):
+    """One ``decode_attention`` call, asserting it took the kernel
+    ``decode_plan`` names for the shape (one launch there)."""
+    DA = _kmod("decode_attention")
+    before = dict(DA.PLANS)
+    out = DA.decode_attention(q, k, v, valid, **kw)
+    b, h, d = q.shape
+    kern = DA.decode_plan(b, k.shape[1], h, k.shape[2], d, q.dtype).kernel
+    moved = {r: n - before[r] for r, n in DA.PLANS.items() if n != before[r]}
+    assert moved == {kern: 1}, (tuple(q.shape), q.dtype, moved, kern)
+    return out
 
 
 def _flash(q, k, v, **kw):
@@ -2031,14 +2072,19 @@ def phase_pacer(device, children: dict) -> dict:
 
 ATTN = {
     # name: (source, TPU kernel it replaces); flash_attention is the
-    # tensor-core route (bf16 at d 64/128, the serve cell),
-    # flash_attention_cuda_core the route float32 takes (serve_f32)
+    # tensor-core route (bf16 at d 64/128/256: the serve cell,
+    # recurrentgemma), flash_attention_cuda_core the route float32 takes
+    # (serve_f32); decode_attention the split kernel (gemma2's g 2),
+    # decode_attention_group the group kernel (bf16 at g 6-16:
+    # recurrentgemma, mixtral, internvl2)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:103"),
     "flash_attention_cuda_core": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:103"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:71"),
+    "decode_attention_group": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:71"),
 }
 #: kernel against plain version: atol = rtol (tests/test_kernels.py)
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -2114,6 +2160,13 @@ FLASH_EDGE = [
     # tile) and internvl2-26b's joint prefill (phase 17)
     (4, 4, 8, 8, 64, True, None, 0.0),
     (2, 2048, 48, 8, 128, True, None, 0.0),
+    # recurrentgemma's heads at d 256 (64-key tiles on the tensor-core
+    # route): under a window that skips tiles, ragged with a softcap,
+    # shorter than one tile, non-causal
+    (1, 520, 16, 1, 256, True, 100, 0.0),
+    (2, 130, 16, 1, 256, True, None, 50.0),
+    (2, 40, 16, 1, 256, True, None, 0.0),
+    (1, 97, 8, 2, 256, False, None, 0.0),
 ]
 #: tests/test_kernels.py:84-88 (b, s, h, kv, d, cap), then gemma2's
 #: decode at the serve cell's cache lengths (global and local ring),
@@ -2127,6 +2180,12 @@ DECODE_EDGE = [
     (4, 4096, 32, 16, 128, GEMMA_CAP),
     (4, 448, 8, 8, 64, 0.0),
     (2, 2176, 48, 8, 128, 0.0),
+    # the group kernel's shapes (bf16): recurrentgemma's g 16 ring at d
+    # 256, two kv heads, starcoder2's g 12, a cache shorter than a tile
+    (2, 2048, 16, 1, 256, 0.0),
+    (3, 323, 16, 2, 256, 50.0),
+    (2, 700, 24, 2, 128, 0.0),
+    (2, 40, 16, 1, 256, 0.0),
 ]
 
 
@@ -2198,9 +2257,10 @@ def _cap_cases(device, g) -> dict:
             kw = dict(scale=GEMMA_SCALE if h == 32 else None)
             f32 = [x.float() for x in (q, k, v)]
             want = DA.decode_attention_plain(*f32, valid, softcap=cap, **kw)
-            tag = f"cap {b}x{s}x{h}/{kv}x{d} cap{cap} {dt}"
+            tag = (f"cap {b}x{s}x{h}/{kv}x{d} cap{cap} {dt} "
+                   f"{DA.decode_plan(b, s, h, kv, d, dt).kernel}")
             errs["decode"][tag] = _held(
-                DA.decode_attention(q, k, v, valid, softcap=cap, **kw),
+                _decode(q, k, v, valid, softcap=cap, **kw),
                 want, str(dt)[6:], f"decode {tag}")
             moved[tag] = _beyond(DA.decode_attention_plain(*f32, valid, **kw),
                                  want, str(dt)[6:], f"decode {tag}")
@@ -2251,8 +2311,9 @@ def _decode_edges(device, g) -> dict:
             k, v = [_randn(g, (b, s, kv, d), dt, device) for _ in range(2)]
             valid = torch.rand((b, s), generator=g, device=device) > 0.3
             kw = dict(softcap=cap, scale=GEMMA_SCALE if h == 32 else None)
-            tag = f"{b}x{s}x{h}/{kv}x{d} cap{cap} {dt}"
-            errs[tag] = _held(DA.decode_attention(q, k, v, valid, **kw),
+            tag = (f"{b}x{s}x{h}/{kv}x{d} cap{cap} {dt} "
+                   f"{DA.decode_plan(b, s, h, kv, d, dt).kernel}")
+            errs[tag] = _held(_decode(q, k, v, valid, **kw),
                               DA.decode_attention_plain(q, k, v, valid, **kw),
                               str(dt)[6:], f"decode {tag}")
     # a single valid slot: the output is that slot's V row
@@ -2268,17 +2329,19 @@ def _decode_edges(device, g) -> dict:
     return errs
 
 
-#: the split kernel's tiling edges: head dims and GQA group sizes
+#: the decode kernels' tiling edges: head dims and GQA group sizes (bf16
+#: at g 8 and 16, d 64-256: the group kernel's 64-key tiles and splits)
 DECODE_TILE_DIMS = (8, 32, 64, 128, 256)
-DECODE_TILE_GROUPS = (1, 2, 4, 8)
+DECODE_TILE_GROUPS = (1, 2, 4, 8, 16)
 
 
 def _decode_tiling(device, g) -> dict:
     """decode_attention where its tiling has edges, in both dtypes
     against the plain version: at each d in DECODE_TILE_DIMS and g in
     DECODE_TILE_GROUPS (2 kv heads, batch 2) a cache of 5 tiles + 3
-    slots (no multiple of the tile), the second tile wholly invalid and
-    batch row 1 with no valid slot at all (the kernel's 0 there)."""
+    slots (no multiple of the tile), the second tile wholly invalid (on
+    the group kernel a whole split) and batch row 1 with no valid slot at
+    all (the kernel's 0 there); each call on the kernel its plan names."""
     import torch
     DA = _kmod("decode_attention")
     errs = {}
@@ -2297,8 +2360,8 @@ def _decode_tiling(device, g) -> dict:
                 valid[1] = False
                 plan = DA.decode_plan(b, s, h, kv, d, dt)
                 tag = (f"tiling d{d} g{grp} s{s} tile{tile} "
-                       f"split{plan.keys_per_split} {dt}")
-                got = DA.decode_attention(q, k, v, valid, softcap=GEMMA_CAP)
+                       f"split{plan.keys_per_split} {dt} {plan.kernel}")
+                got = _decode(q, k, v, valid, softcap=GEMMA_CAP)
                 want = DA.decode_attention_plain(q, k, v, valid,
                                                  softcap=GEMMA_CAP)
                 errs[tag] = _held(got[:1], want[:1], str(dt)[6:], tag)
@@ -2356,8 +2419,9 @@ def _flex_call(qT, kT, vT, *, window, valid, scale=GEMMA_SCALE,
 #: window, softcap, scale).  serve_f32's prefill (2 slots x 4200
 #: positions, gemma2's heads, float32, softcap 50), its global and its
 #: local layer; then recurrentgemma-9b's local attention in bfloat16
-#: (16/1 heads, d 256, window 2048, no softcap), the route's bf16 work at
-#: a real width (ROADMAP Queue 1 item 1)
+#: (16/1 heads, d 256, window 2048, no softcap): the tensor-core route's
+#: since it takes d 256, so the CUDA-core kernel is launched there by
+#: name, timed beside the tensor-core route on the same inputs
 CC_SHAPES = [
     ("global", (2, SERVE_PROMPT[1], *GEMMA_HEADS), "float32", None,
      GEMMA_CAP, GEMMA_SCALE),
@@ -2393,8 +2457,11 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
     here, but the card's bf16 rate is what the same work could take).
     The library: flex_attention where the softcap bites (gemma2's
     shapes), and scaled_dot_product_attention at softcap 0 with the
-    kernel timed at softcap 0 beside it.  The errors of every CUDA-core
-    case checked in this phase, by dtype."""
+    kernel timed at softcap 0 beside it.  Where ``_route`` sends the
+    shape to the tensor cores (bf16 at d 256) the CUDA-core kernel is
+    launched by name, and the routed kernel is held (``_held``,
+    ``_held_rows``) and timed beside it on the same inputs.  The errors
+    of every CUDA-core case checked in this phase, by dtype."""
     import torch
     FA = _kmod("flash_attention")
     times = {}
@@ -2403,8 +2470,12 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
         q = _randn(g, (b, t, h, d), dtype, device)
         k, v = [_randn(g, (b, t, kv, d), dtype, device) for _ in range(2)]
         kw = dict(window=window, softcap=cap, scale=scale)
-        first = _flash(q, k, v, **kw)                      # the route
-        same = bool(torch.equal(first, FA.flash_attention(q, k, v, **kw)))
+
+        def cc(**over):                       # the CUDA-core kernel
+            return FA._launch("cuda_core", q, k, v, causal=True,
+                              **{**kw, **over})
+        first = cc()
+        same = bool(torch.equal(first, cc()))
         assert same, ("flash_attention cuda_core rerun", name)
         want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
                                         **kw)
@@ -2415,8 +2486,20 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
                      "plain_rms": float(want.square().mean().sqrt()),
                      "plain_err_rms": float(
                          (first.float() - want).square().mean().sqrt())}
+        routed = FA._route(dtype, d)
+        tc = None
+        if routed != "cuda_core":             # the routed kernel beside it
+            got = _flash(q, k, v, **kw)
+            tc = {"route": routed,
+                  "max_abs_err": _held(got, want, dt, f"{routed} {name}"),
+                  "max_row_rel_err": _held_rows(got, want,
+                                                f"{routed} {name}"),
+                  "rerun_bitwise_equal": bool(torch.equal(
+                      got, FA.flash_attention(q, k, v, **kw)))}
+            assert tc["rerun_bitwise_equal"], (routed, name)
+            del got
         del first, want
-        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 3)
+        ms = _event_ms(cc, 3)
         plain_ms = _event_ms(
             lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
         fl = _flash_flops(q.shape, t, causal=True, window=window)
@@ -2425,7 +2508,8 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
         peak = BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS
         o_ms = fl / peak * 1e3
         rec = {"shape": [b, t, h, kv, d], "dtype": dt, "window": window,
-               "softcap": cap, "plain_max_abs_err": plain_err,
+               "softcap": cap, "route": "cuda_core",
+               "plain_max_abs_err": plain_err,
                **scale_rec, "peak_flops": peak,
                "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(b_ms, o_ms),
@@ -2433,12 +2517,18 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
                "bound_share": max(b_ms, o_ms) / ms, "flops": fl,
                "tflops_per_s": fl / ms / 1e9, "rerun_bitwise_equal": same,
                "smem_bytes": FA._lib().fa_smem_bytes(d)}
+        if tc is not None:
+            tc["ms"] = _event_ms(lambda: FA.flash_attention(q, k, v, **kw),
+                                 10)
+            tc["bound_share"] = max(b_ms, o_ms) / tc["ms"]
+            tc["tflops_per_s"] = fl / tc["ms"] / 1e9
+            tc["speedup_over_cuda_core"] = ms / tc["ms"]
+            rec["routed"] = tc
         qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         if cap:
             lib = _flex_call(qT, kT, vT, window=window, valid=None)
             rec["flex_max_abs_err"] = _held(
-                _flash(q, k, v, **kw), lib().transpose(1, 2), dt,
-                f"flex {dt} {name}")
+                cc(), lib().transpose(1, 2), dt, f"flex {dt} {name}")
             rec["flex_ms"] = _event_ms(lib, 5)
             rec["kernel_faster_than_flex"] = ms <= rec["flex_ms"]
         lib = _sdpa_call(qT, kT, vT, window=window, scale=scale)
@@ -2446,11 +2536,15 @@ def _flash_cuda_core(device, g, flash_errs: dict) -> dict:
         # SDPA's float32 backends may multiply in TF32: it is held to the
         # bf16 bound, as the same function, not as a second oracle
         rec["sdpa_softcap0_max_abs_err"] = _held(
-            _flash(q, k, v, **kw0), lib().transpose(1, 2), "bfloat16",
+            cc(softcap=0.0), lib().transpose(1, 2), "bfloat16",
             f"sdpa {dt} {name}")
         rec["sdpa_softcap0_ms"] = _event_ms(lib, 3)
-        rec["kernel_softcap0_ms"] = _event_ms(
-            lambda: FA.flash_attention(q, k, v, **kw0), 3)
+        rec["kernel_softcap0_ms"] = _event_ms(lambda: cc(softcap=0.0), 3)
+        if tc is not None:
+            tc["softcap0_ms"] = _event_ms(
+                lambda: FA.flash_attention(q, k, v, **kw0), 10)
+            tc["faster_than_sdpa_softcap0"] = \
+                tc["softcap0_ms"] <= rec["sdpa_softcap0_ms"]
         times[name] = rec
         del q, k, v, qT, kT, vT, lib
         torch.cuda.empty_cache()
@@ -2605,6 +2699,13 @@ def phase_attention(device) -> dict:
                         "rerun_bitwise_equal": rerun_same,
                         "plan": plan._asdict()}
         assert rerun_same, ("decode_attention rerun", layer)
+        # the group kernel's plan beside the split plan gemma2 takes
+        gp = DA.decode_plan(b, s, h, kv, d, bf, kernel="group")
+        run = lambda: DA._launch(gp, q, k, v, valid, **kw)  # noqa: E731
+        times[layer]["group_plan"] = {
+            "plan": gp._asdict(), "us": _time_ms(run, 50)[0] * 1e3,
+            "max_abs_err": _held(run(), kern(), "bfloat16",
+                                 f"decode group {layer}")}
         qT, kT, vT = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         kT, vT = kT.contiguous(), vT.contiguous()
         mask = valid[:, None, None, :]
@@ -2635,7 +2736,13 @@ def phase_attention(device) -> dict:
         "bound_ms": times["global"]["bound_us"] / 1e3,
         "bound_by": times["global"]["bound_by"],
         "library_ms": flex["global"]["library_us"] / 1e3,
-        "max_abs_err": max(decode_errs.values())}
+        "max_abs_err": max(e for tag, e in decode_errs.items()
+                           if not tag.endswith("group"))}
+    # the group kernel's row: its errors here; its times at
+    # recurrentgemma's served shape come from phase 15 (_group_row)
+    rows["decode_attention_group"] = {
+        "max_abs_err": max(e for tag, e in decode_errs.items()
+                           if tag.endswith("group"))}
     emit(rec)
     torch.cuda.empty_cache()
     for name, row in rows.items():
@@ -3005,7 +3112,7 @@ def phase_serve(device, decode_us: float) -> dict:
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=SERVE_NEW)
     wall = time.perf_counter() - t0
-    launches, by_route = counts(), routes()
+    launches, by_route, by_plan = counts(), routes(), plans()
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
     n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
@@ -3032,7 +3139,7 @@ def phase_serve(device, decode_us: float) -> dict:
            / max(n_decode - 1, 1) * 1e3,
            "generated_tokens": sum(len(o) for o in outs),
            "max_memory_allocated": peak, "launches": launches,
-           "routes": by_route}
+           "routes": by_route, "plans": by_plan}
     rec["captures"] = eng.captures
     assert st == {"prefills": 2, "refills": 0, "decode_steps": 30}, st
     assert all(len(o) == SERVE_NEW for o in outs), [len(o) for o in outs]
@@ -3040,6 +3147,7 @@ def phase_serve(device, decode_us: float) -> dict:
     _expect(launches, "serve", flash=n_layers * n_prefill,
             decode=n_layers * n_decode)
     _expect_routes(by_route, "serve", tensor_core=n_layers * n_prefill)
+    _expect_plans(by_plan, "serve", split=n_layers * n_decode)   # g 2
     del eng, calls
     gc.collect()
     torch.cuda.empty_cache()
@@ -3373,7 +3481,11 @@ def _family_attention(device) -> dict:
     bf16, and row by row, ``_held_rows``), and timed beside its bound
     (bytes once, operations at the bf16 peak), SDPA at the same function
     and, for decode where flagged, ``flex_attention``; decode by
-    CUDA-graph replay."""
+    CUDA-graph replay.  Beside the routed kernels, on the same inputs:
+    flash at d 256 on the CUDA-core kernel (its route before the
+    tensor-core kernel took d 256), and decode on the other kernel's plan
+    where both can run (the split plan beside the group kernel, and the
+    reverse)."""
     import math
     import torch
     import torch.nn.functional as F
@@ -3391,12 +3503,22 @@ def _family_attention(device) -> dict:
                                         **kw)
         err = _held(got, want, "bfloat16", f"flash {arch}")
         row_err = _held_rows(got, want, f"flash {arch}")
+        old = {}
+        if d == 256:             # the CUDA-core kernel, by name
+            def cc():
+                return FA._launch("cuda_core", q, k, v, causal=True,
+                                  softcap=0.0, **kw)
+            old = {"cuda_core_max_abs_err": _held(
+                cc(), want, "bfloat16", f"flash cuda_core {arch}"),
+                   "cuda_core_ms": _event_ms(cc, 3)}
         del want
         qT, kT, vT = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = _sdpa_call(qT, kT, vT, window=window, scale=kw["scale"])
         lib_err = _held(got, lib().transpose(1, 2), "bfloat16",
                         f"sdpa {arch}")
-        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 5)
+        # 20 calls: 5 left a sub-200-us kernel's time within ~25%
+        # between runs
+        ms = _event_ms(lambda: FA.flash_attention(q, k, v, **kw), 20)
         fl = _flash_flops(q.shape, t, causal=True, window=window)
         b_ms = 2 * (2 * q.numel() + k.numel() + v.numel()) \
             / HBM_BYTES_PER_S * 1e3
@@ -3411,7 +3533,9 @@ def _family_attention(device) -> dict:
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "bound_share": max(b_ms, o_ms) / ms, "flops": fl,
             "tflops_per_s": fl / ms / 1e9, "max_abs_err": err,
-            "max_row_rel_err": row_err, "sdpa_max_abs_err": lib_err}
+            "max_row_rel_err": row_err, "sdpa_max_abs_err": lib_err, **old}
+        if old:
+            flash[arch]["speedup_over_cuda_core"] = old["cuda_core_ms"] / ms
         del q, k, v, qT, kT, vT, lib, got
         torch.cuda.empty_cache()
     for arch, (b, s, h, kv, d), n_valid, with_flex in FAM_DECODE:
@@ -3422,12 +3546,12 @@ def _family_attention(device) -> dict:
         scale = 1.0 / math.sqrt(d)
         kern = lambda: DA.decode_attention(q, k, v, valid,  # noqa: E731
                                            scale=scale)
-        got = kern()
+        plan = DA.decode_plan(b, s, h, kv, d, bf)
+        got = _decode(q, k, v, valid, scale=scale)
         want = DA.decode_attention_plain(q.float(), k.float(), v.float(),
                                          valid, scale=scale)
         err = _held(got, want, "bfloat16", f"decode {arch}")
         row_err = _held_rows(got, want, f"decode {arch}")
-        del want
         assert torch.equal(got, kern()), ("decode_attention rerun", arch)
         ms, eager_ms = _time_ms(kern, 50)
         nbytes = 2 * (2 * b * n_valid * kv * d + 2 * q.numel()) \
@@ -3450,10 +3574,23 @@ def _family_attention(device) -> dict:
                "bound_ms": max(b_ms, o_ms),
                "bound_by": "bytes" if b_ms >= o_ms else "operations",
                "bound_share": max(b_ms, o_ms) / ms,
-               "plan": DA.decode_plan(b, s, h, kv, d, bf)._asdict(),
+               "plan": plan._asdict(),
                "max_abs_err": err, "max_row_rel_err": row_err,
                "sdpa_max_abs_err": sdpa_err,
                "library_ms": sdpa_ms, "library": "sdpa"}
+        other = "split" if plan.kernel == "group" else "group"
+        if other == "split" or DA.group_takes(h // kv, d, bf):
+            op = DA.decode_plan(b, s, h, kv, d, bf, kernel=other)
+            run = lambda: DA._launch(op, q, k, v, valid,  # noqa: E731
+                                     softcap=0.0, scale=scale)
+            rec["other_plan"] = {
+                "kernel": other, "plan": op._asdict(),
+                "max_abs_err": _held(run(), want, "bfloat16",
+                                     f"decode {other} {arch}"),
+                "ms": _time_ms(run, 50)[0]}
+            rec["other_plan"]["chosen_faster"] = \
+                ms <= rec["other_plan"]["ms"]
+        del want
         if with_flex:
             lib = _flex_call(qT, kT, vT, window=None, valid=valid,
                              scale=scale, cap=0.0)
@@ -3606,6 +3743,9 @@ def _serve_family(device, arch: str, n_layers) -> dict:
     cfg = dataclasses.replace(get_config(arch), **over)
     n_attn = _attn_layers(cfg)
     route = _kmod("flash_attention")._route(torch.bfloat16, cfg.head_dim)
+    kern = _kmod("decode_attention").decode_plan(
+        FAM_SLOTS, FAM_MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        torch.bfloat16).kernel
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3623,7 +3763,7 @@ def _serve_family(device, arch: str, n_layers) -> dict:
     t_start = t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=FAM_NEW)
     wall = time.perf_counter() - t0
-    launches, by_route = counts(), routes()
+    launches, by_route, by_plan = counts(), routes(), plans()
     peak = torch.cuda.max_memory_allocated()
     n_prefill, n_decode = len(calls["prefill"]), len(calls["decode"])
     prefill_s = sum(c[0] for c in calls["prefill"])
@@ -3646,8 +3786,9 @@ def _serve_family(device, arch: str, n_layers) -> dict:
            / (n_decode - 1) * 1e3,
            "decode_tokens_per_s": FAM_SLOTS * n_decode / decode_s,
            "max_memory_allocated": peak, "captures": eng.captures,
-           "launches": launches, "routes": by_route,
-           "flash_route": route if n_attn else None}
+           "launches": launches, "routes": by_route, "plans": by_plan,
+           "flash_route": route if n_attn else None,
+           "decode_kernel": kern if n_attn else None}
     assert eng.stats == {"prefills": 2, "refills": 0, "decode_steps": 30}, \
         (arch, eng.stats)
     assert all(len(o) == FAM_NEW for o in outs), arch
@@ -3656,6 +3797,8 @@ def _serve_family(device, arch: str, n_layers) -> dict:
             decode=n_attn * n_decode)
     _expect_routes(by_route, arch, **({route: n_attn * n_prefill}
                                       if n_attn else {}))
+    _expect_plans(by_plan, arch, **({kern: n_attn * n_decode}
+                                    if n_attn else {}))
     # the same tokens through an eager decode_step loop
     eager_outs, secs = _eager_serve(cfg, params, prompts, device,
                                     slots=FAM_SLOTS, max_len=FAM_MAX_LEN,
@@ -3879,14 +4022,18 @@ def _serve_by_module(device, arch: str) -> dict:
     reset_counts()
     cap, cap_launches = _greedy(cfg, params, inputs, max_len, new,
                                 captured=True, secs=cap_secs)
-    served, served_routes = counts(), routes()
+    served, served_routes, served_plans = counts(), routes(), plans()
     peak = torch.cuda.max_memory_allocated()
     steps_s["decode"] = time.perf_counter() - t0
     # the captured run: a prefill, the warm-up step, new - 2 replays
     _expect(served, f"{arch} served", flash=n, decode=n * (new - 1))
     _expect_routes(served_routes, f"{arch} served", **{route: n})
+    kern = _kmod("decode_attention").decode_plan(
+        batch, max_len, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        torch.bfloat16).kernel
+    _expect_plans(served_plans, f"{arch} served", **{kern: n * (new - 1)})
     merged = {k: v for d in cap_launches for k, v in d.items()}
-    assert merged == {"decode_attention": n}, (arch, cap_launches)
+    assert merged == {"decode_attention": n, kern: n}, (arch, cap_launches)
     replay_ms = sum(cap_secs[1:]) / len(cap_secs[1:]) * 1e3
     eager_ms = sum(eager_secs) / len(eager_secs) * 1e3
     n_params = transformer.n_params(params)
@@ -3904,6 +4051,7 @@ def _serve_by_module(device, arch: str) -> dict:
            "decode_tokens_per_s": batch * (new - 1) / sum(cap_secs),
            "replayed_tokens_per_s": batch / replay_ms * 1e3,
            "served_launches": served, "served_routes": served_routes,
+           "served_plans": served_plans, "decode_kernel": kern,
            "max_memory_allocated": peak,
            "tokens_equal_captured_eager": cap == eager,
            "tokens_row0": cap[0],
@@ -5981,13 +6129,35 @@ def main() -> int:
             _stop(list(pacer_cpu.values()) + dry)
     total = time.perf_counter() - t_start
     emit({"phase": "total", "seconds": total, "budget_s": BUDGET_S,
-          "within_budget": total <= BUDGET_S})
+          "within_budget": total <= BUDGET_S,
+          "phase_seconds": _phase_seconds()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _counter(name: str) -> str:
+    """The ``counts()`` key that a kernel row's launches fall under (the
+    routes and plans of one wrapper share its count)."""
+    return name.replace("_cuda_core", "").replace("_group", "")
+
+
+def _group_row(row: dict, fam: dict) -> None:
+    """The group kernel's kernels-line row: times at recurrentgemma's
+    served decode shape (phase 15, graph replay), its errors there and
+    in phase 13, launches on the serve_recurrentgemma path; the library
+    is SDPA (the faster of SDPA and flex there, no softcap)."""
+    rec = fam["attention"]["decode"]["recurrentgemma-9b"]
+    assert rec["plan"]["kernel"] == "group", rec["plan"]
+    row.update({"ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["sdpa_ms"],
+                "max_abs_err": max(row["max_abs_err"], rec["max_abs_err"]),
+                "launches": fam["models"]["recurrentgemma-9b"]["plans"][
+                    "group"]})
 
 
 def _paths_launches(rows: list, paths: dict) -> None:
@@ -6034,33 +6204,31 @@ def _phases(device, pacer_cpu: dict, dry: list) -> list:
     attn = phase_attention(device)
     serve = phase_serve(device, attn["decode_attention"]["ms"] * 1e3)
     attn["flash_attention"]["launches"] = serve["routes"]["tensor_core"]
-    attn["decode_attention"]["launches"] = \
-        serve["launches"]["decode_attention"]
+    attn["decode_attention"]["launches"] = serve["plans"]["split"]
     f32 = phase_serve_f32(device)
     attn["flash_attention_cuda_core"]["launches"] = \
         f32["routes"]["kernels"]["cuda_core"]
     fam = phase_serve_families(device)     # after gemma2's 67 GB are freed
+    _group_row(attn["decode_attention_group"], fam)
+    attn_rows = [attn[n] for n in ATTN]
     for arch, m in fam["models"].items():
-        _paths_launches(
-            [attn["flash_attention"], attn["flash_attention_cuda_core"],
-             attn["decode_attention"]],
-            {f"serve_{arch}": {
-                "flash_attention": m["routes"]["tensor_core"],
-                "flash_attention_cuda_core": m["routes"]["cuda_core"],
-                "decode_attention": m["launches"]["decode_attention"]}})
+        _paths_launches(attn_rows, {f"serve_{arch}": {
+            "flash_attention": m["routes"]["tensor_core"],
+            "flash_attention_cuda_core": m["routes"]["cuda_core"],
+            "decode_attention": m["plans"]["split"],
+            "decode_attention_group": m["plans"]["group"]}})
     mm = phase_serve_encdec_vlm(device)    # after the families are freed
     paths = {f"serve_{arch}": {
         "flash_attention": m["served_routes"]["tensor_core"],
         "flash_attention_cuda_core": m["served_routes"]["cuda_core"],
-        "decode_attention": m["served_launches"]["decode_attention"]}
+        "decode_attention": m["served_plans"]["split"],
+        "decode_attention_group": m["served_plans"]["group"]}
         for arch, m in mm["models"].items()}
     f32 = mm["whisper_f32"]
     paths["serve_whisper-base_f32"] = {
         "flash_attention_cuda_core": f32["routes"]["kernels"]["cuda_core"],
         "decode_attention": f32["launches"]["kernels"]["decode_attention"]}
-    _paths_launches([attn["flash_attention"],
-                     attn["flash_attention_cuda_core"],
-                     attn["decode_attention"]], paths)
+    _paths_launches(attn_rows, paths)
     phase_card_vs_cpu(device)
     children = []      # phase 21's (a) and (b), started beside the tune
     try:
@@ -6073,16 +6241,12 @@ def _phases(device, pacer_cpu: dict, dry: list) -> list:
         row = seg if name == "segment_reduce" else kern[name]
         row["tune_launches"] = \
             tune["value_and_grad"]["launches_forward"][name]
-    rows = list(kern.values()) + [seg, mstep, mblock,
-                                  attn["flash_attention"],
-                                  attn["flash_attention_cuda_core"],
-                                  attn["decode_attention"]]
+    rows = list(kern.values()) + [seg, mstep, mblock, *attn_rows]
     train = phase_train(device, tune["beside"]["train"])
     sharded = phase_sharded_sweep(tune["beside"]["sharded"], tune["last"])
     launched = train["full_width"]["launches"]
     for row in rows:       # the training path launches none of them
-        row["train_launches"] = launched[row["name"].replace(
-            "_cuda_core", "")]
+        row["train_launches"] = launched[_counter(row["name"])]
     paths = {f"sharded_dc_world_of_one_{t}":
              sharded["world_of_one"][t]["launches"] for t in ("flow", "mega")}
     paths["sharded_dc_world_of_one_nccl_mega"] = \
@@ -6093,7 +6257,7 @@ def _phases(device, pacer_cpu: dict, dry: list) -> list:
     _paths_launches(rows, paths)
     models = phase_sharded_models(device, dry)["sharded_phi3"]
     for row in rows:       # the sharded model paths launch none of them
-        name = row["name"].replace("_cuda_core", "")
+        name = _counter(row["name"])
         row.setdefault("launches_by_path", {}).update({
             "sharded_phi3_serve": models["launches"][name],
             "sharded_phi3_train": models["train_launches"][name]})

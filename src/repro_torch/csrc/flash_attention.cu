@@ -29,34 +29,40 @@
 // Two routes, chosen by the wrapper (kernels/flash_attention.py::_route)
 // from q's dtype and head_dim, both computing the above:
 //
-// * Tensor cores (fa_flash_attention_tc): bfloat16 at d in {64, 128},
-//   every bf16 call of gemma2's prefill.  Bound on this card: operations
-//   (4 * visible pairs * h * d flops at 989 TFLOP/s; at the serve cell
-//   also the SFU: one ex2 and, with a softcap, one tanh per visible
-//   logit at 16 a clock per SM).  Design, for Hopper: one CTA of 384
-//   threads takes 128 folded rows of one (batch, kv head) -- a producer
-//   warpgroup and two consumer warpgroups of 64 rows (one wgmma M each).
-//   Q is loaded once by the consumers into 128-byte-swizzled shared
-//   memory; K and V tiles of 128 keys stream through a 2-stage ring
-//   filled by TMA (4-D maps (d, kv, s, b), box (64, 1, 128, 1), 128-byte
-//   swizzle; out-of-bounds rows past s arrive as zeros) with full/empty
-//   mbarriers.  S = Q K^T is wgmma m64n128k16 from shared memory;
-//   scale, softcap (tanh.approx.f32) and masks act on the float32
+// * Tensor cores (fa_flash_attention_tc): bfloat16 at d in {64, 128,
+//   256}: every bf16 call of gemma2's prefill (d 128) and recurrentgemma's
+//   (d 256).  Bound on this card: operations (4 * visible pairs * h * d
+//   flops at 989 TFLOP/s; at the serve cell also the SFU: one ex2 and,
+//   with a softcap, one tanh per visible logit at 16 a clock per SM).
+//   Design, for Hopper: one CTA of 384 threads takes 128 folded rows of
+//   one (batch, kv head) -- a producer warpgroup and two consumer
+//   warpgroups of 64 rows (one wgmma M each).  Q is loaded once by the
+//   consumers into 128-byte-swizzled shared memory; K and V tiles of BK
+//   keys (bk_of: 128 at d 64 / 128, 64 at d 256) stream through a
+//   2-stage ring filled by TMA (4-D maps (d, kv, s, b), box (64, 1, BK,
+//   1), 128-byte swizzle; out-of-bounds rows past s arrive as zeros) with
+//   full/empty mbarriers.  S = Q K^T is wgmma m64nBKk16 from shared
+//   memory; scale, softcap (tanh.approx.f32) and masks act on the float32
 //   accumulator fragments, in log2 units so the softmax is one
 //   ex2.approx a logit; row max / sum over the 4 lanes of a row.  P is
 //   rounded to bf16 in registers (as the plain version rounds the
-//   weights to q's dtype) and is wgmma's A operand for O += P V, V read
-//   MN-major (the transpose bit).  setmaxnreg gives the consumers 232
-//   registers (S and O are 64 floats a thread each at d = 128).  Heavy
-//   causal q blocks launch first.  tanh.approx has a relative error of
-//   about 2^-11; the error it adds is measured by chip_smoke at caps 2,
-//   5 and 50 against the 2e-2 bound.
+//   weights to q's dtype) and is wgmma's A operand for O += P V
+//   (m64n{d}k16), V read MN-major (the transpose bit).  Registers set
+//   the tile: a consumer thread holds S (BK / 2 floats), O (d / 2) and P
+//   (BK / 4 pairs), so d 256 takes 64-key tiles (32 + 128 + 16) and
+//   setmaxnreg gives the consumers 240 and the producer 24 (232 / 40 at
+//   d 64 / 128, where S and O are 64 floats each at d 128).  Heavy causal
+//   q blocks launch first.  tanh.approx has a relative error of about
+//   2^-11; the error it adds is measured by chip_smoke at caps 2, 5 and
+//   50 against the 2e-2 bound.
 //
 // * CUDA cores (fa_flash_attention): float32 at any d (one-pass TF32
 //   wgmma would break the 3e-5 float32 bound; the 3xTF32 split would
 //   triple the operand tiles and leave no room for a ring) and bfloat16
-//   at d outside {64, 128} (the smoke configs' 8-16, the edge shapes'
-//   32, recurrentgemma's 256).  Bound on this card: float32 operations,
+//   at d outside {64, 128, 256} (the smoke configs' 8-16, the edge
+//   shapes' 32); it still takes bf16 at any d when called directly, and
+//   chip_smoke times it at recurrentgemma's d 256 beside the tensor-core
+//   route.  Bound on this card: float32 operations,
 //   4 * visible pairs * h * d flops at 67 TFLOP/s (128 FMA lanes an SM);
 //   the bytes are 6-7x below that at serve_f32's prefill.  So the design
 //   keeps the FMA pipe fed and spends few other instructions:
@@ -513,25 +519,43 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // ===========================================================================
-// Tensor-core route: bfloat16, d in {64, 128}, wgmma + TMA ring
+// Tensor-core route: bfloat16, d in {64, 128, 256}, wgmma + TMA ring
 // ===========================================================================
 
 namespace tc {
 
 constexpr int TC_BM = 128;        // folded query rows per CTA (2 x 64)
-constexpr int TC_BK = 128;        // keys per kv tile
+constexpr int TC_BK = 128;        // keys per kv tile at d 64 and 128
+constexpr int TC_BK_D256 = 64;    // keys per kv tile at d 256
 constexpr int TC_STAGES = 2;      // depth of the K/V ring
 constexpr int TC_ALIGN = 1024;    // slack to align the ring to the swizzle
 constexpr int TC_THREADS = 384;   // producer warpgroup + 2 consumers
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int ROW_BYTES = 128;    // one swizzled row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;     // NEG_INF, in log2 units here
 
+// Keys per kv tile at head dim D.  At d 256 a consumer thread holds O as
+// 128 float32 (wgmma m64n256), so S takes 64-key tiles (m64n64, 32
+// registers) and P 16 bf16 pairs: 176 beside the addresses, inside the
+// 240 that setmaxnreg gives.  At 128 keys S alone would take 64 more.
+__host__ __device__ constexpr int bk_of(int D) {
+  return D == 256 ? TC_BK_D256 : TC_BK;
+}
+// setmaxnreg's counts: two consumer warpgroups and the producer share
+// the SM's 65,536 registers (2 * 128 * 240 + 128 * 24 = 64,512 at d 256)
+__host__ __device__ constexpr int producer_regs(int D) {
+  return D == 256 ? 24 : 40;
+}
+__host__ __device__ constexpr int consumer_regs(int D) {
+  return D == 256 ? 240 : 232;
+}
+
 // Dynamic shared memory at head dim D: alignment slack, Q (TC_BM rows),
-// TC_STAGES x (K tile + V tile) of TC_BK rows, and 3 mbarriers a stage.
+// TC_STAGES x (K tile + V tile) of bk_of(D) rows, and 3 mbarriers a
+// stage.  At d 256: 1,024 + 65,536 + 2 * 2 * 32,768 + 48 = 197,680 B of
+// the 232,448 a block may use, so a third stage (+65,536) does not fit.
 __host__ __device__ constexpr int q_bytes(int D) { return TC_BM * D * 2; }
-__host__ __device__ constexpr int tile_bytes(int D) { return TC_BK * D * 2; }
+__host__ __device__ constexpr int tile_bytes(int D) { return bk_of(D) * D * 2; }
 __host__ __device__ constexpr int smem_bytes(int D) {
   return TC_ALIGN + q_bytes(D) + TC_STAGES * 2 * tile_bytes(D)
          + TC_STAGES * 3 * 8;
@@ -660,6 +684,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[0:32] (+)= A . B, A and B in shared memory (both K-major): S at
+// 64-key tiles (d 256)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[0:64] (+)= A . B, A (four bf16x2 registers a thread) from
 // registers, B in shared memory MN-major (the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -721,10 +769,75 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 
+// d[0:128] (+)= A . B, A (four bf16x2 registers a thread) from
+// registers, B in shared memory MN-major (the transpose bit): O += P V
+// at d 256, the four 64-column panels of V LBO apart
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q K^T over one 16-wide slice of d: a 128- or 64-key tile
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BK == 128) wgmma_ss_n128(s, da, db, accumulate);
+  else wgmma_ss_n64(s, da, db, accumulate);
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db, 1);
+  if constexpr (D == 256) wgmma_rs_n256(o, a, db, 1);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, db, 1);
   else wgmma_rs_n64(o, a, db, 1);
 }
 
@@ -739,11 +852,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
                 const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ out, int t, int s, int h, int kv,
                 int causal, int window, float qk_mul, float cap2) {
-  static_assert(D == 64 || D == 128, "tensor-core route: d in {64, 128}");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "tensor-core route: d in {64, 128, 256}");
+  constexpr int BK = bk_of(D);               // keys per kv tile
   constexpr int PANELS = D / 64;             // 64-column panels of d
   constexpr int QW_BYTES = 64 * D * 2;       // one consumer's Q rows
   constexpr int PANEL_Q = 64 * ROW_BYTES;    // a panel of 64 Q rows
-  constexpr int PANEL_KV = TC_BK * ROW_BYTES;
+  constexpr int PANEL_KV = BK * ROW_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + TC_ALIGN - 1) & ~(uint32_t)(TC_ALIGN - 1);
@@ -764,13 +879,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
   const long long qfirst = r0 / g, qlast = rlast / g;
   // kv tiles [jlo, jhi): stop at the first all-future tile, skip the
   // tiles entirely behind the window of the first position
-  const int ntiles = (s + TC_BK - 1) / TC_BK;
+  const int ntiles = (s + BK - 1) / BK;
   int jhi = ntiles;
-  if (causal && qlast / TC_BK + 1 < jhi) jhi = (int)(qlast / TC_BK + 1);
+  if (causal && qlast / BK + 1 < jhi) jhi = (int)(qlast / BK + 1);
   int jlo = 0;
   if (window >= 0) {
-    const long long x = qfirst - window - TC_BK + 1;
-    if (x >= 0) jlo = (int)(x / TC_BK + 1);
+    const long long x = qfirst - window - BK + 1;
+    if (x >= 0) jlo = (int)(x / BK + 1);
   }
 
   if (threadIdx.x == 0) {
@@ -786,7 +901,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer: one thread keeps the ring full -----------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(producer_regs(D)));
     if (threadIdx.x == 0) {
       for (int j = jlo; j < jhi; ++j) {
         const int i = j - jlo, st = i % TC_STAGES;
@@ -795,19 +910,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
 #pragma unroll
         for (int p = 0; p < PANELS; ++p)
           tma_load_4d(sk + st * tile_bytes(D) + p * PANEL_KV, &tmk, full_k(st),
-                      p * 64, kh, j * TC_BK, bb);
+                      p * 64, kh, j * BK, bb);
         mbar_expect_tx(full_v(st), tile_bytes(D));
 #pragma unroll
         for (int p = 0; p < PANELS; ++p)
           tma_load_4d(sv + st * tile_bytes(D) + p * PANEL_KV, &tmv, full_v(st),
-                      p * 64, kh, j * TC_BK, bb);
+                      p * 64, kh, j * BK, bb);
       }
     }
     return;
   }
 
   // ---- consumers: 64 rows each --------------------------------------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(consumer_regs(D)));
   const int cw = wg - 1;
   const int tid = threadIdx.x - 128 * wg;
   const int warp = tid / 32, lane = tid % 32;
@@ -853,22 +968,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
   for (int j = jlo; j < jhi; ++j) {
     const int i = j - jlo, st = i % TC_STAGES;
     const uint32_t ph = (i / TC_STAGES) & 1;
-    const long long k0 = (long long)j * TC_BK;
+    const long long k0 = (long long)j * BK;
 
-    // S = Q K^T  (64 x 128 a warpgroup, float32)
-    float sc[TC_BK / 2];
+    // S = Q K^T  (64 x BK a warpgroup, float32)
+    float sc[BK / 2];
 #pragma unroll
-    for (int x = 0; x < TC_BK / 2; ++x) sc[x] = 0.0f;
+    for (int x = 0; x < BK / 2; ++x) sc[x] = 0.0f;
     const uint64_t kdesc = make_desc(sk + st * tile_bytes(D), 16, 1024);
     mbar_wait(full_k(st), ph);
     __syncwarp();
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(sc,
-                    qdesc + (((kk / 4) * PANEL_Q + (kk % 4) * 32) >> 4),
-                    kdesc + (((kk / 4) * PANEL_KV + (kk % 4) * 32) >> 4),
-                    kk > 0);
+      wgmma_qk<BK>(sc,
+                   qdesc + (((kk / 4) * PANEL_Q + (kk % 4) * 32) >> 4),
+                   kdesc + (((kk / 4) * PANEL_KV + (kk % 4) * 32) >> 4),
+                   kk > 0);
     wg_commit();
     wg_wait0();
     reg_fence(sc);
@@ -876,18 +991,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
     // logits in log2 units: scale, softcap, then the masks (NEG)
     if (cap2 > 0.0f) {
 #pragma unroll
-      for (int x = 0; x < TC_BK / 2; ++x)
+      for (int x = 0; x < BK / 2; ++x)
         sc[x] = cap2 * tanh_fast(sc[x] * qk_mul);
     } else {
 #pragma unroll
-      for (int x = 0; x < TC_BK / 2; ++x) sc[x] *= qk_mul;
+      for (int x = 0; x < BK / 2; ++x) sc[x] *= qk_mul;
     }
-    const bool all_visible = k0 + TC_BK <= s
-                             && (!causal || k0 + TC_BK - 1 <= qfirst)
+    const bool all_visible = k0 + BK <= s
+                             && (!causal || k0 + BK - 1 <= qfirst)
                              && (window < 0 || k0 > qlast - window);
     if (!all_visible) {
 #pragma unroll
-      for (int x = 0; x < TC_BK / 2; ++x) {
+      for (int x = 0; x < BK / 2; ++x) {
         const long long kpos = k0 + 8 * (x / 4) + c2 + (x & 1);
         const long long p = pos[(x / 2) & 1];
         bool ok = kpos < s;
@@ -900,7 +1015,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
     // lanes of a quad hold one row
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int x = 0; x < TC_BK / 2; ++x)
+    for (int x = 0; x < BK / 2; ++x)
       mx[(x / 2) & 1] = fmaxf(mx[(x / 2) & 1], sc[x]);
     float corr[2];
 #pragma unroll
@@ -911,9 +1026,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
       m[e] = mx[e];
       l[e] *= corr[e];
     }
-    uint32_t pa[TC_BK / 4];            // P as bf16 pairs: wgmma's A
+    uint32_t pa[BK / 4];            // P as bf16 pairs: wgmma's A
 #pragma unroll
-    for (int x = 0; x < TC_BK / 2; x += 2) {
+    for (int x = 0; x < BK / 2; x += 2) {
       const int e = (x / 2) & 1;
       const float p0 = sc[x] == NEG ? 0.0f : ex2(sc[x] - m[e]);
       const float p1 = sc[x + 1] == NEG ? 0.0f : ex2(sc[x + 1] - m[e]);
@@ -929,7 +1044,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
     __syncwarp();
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
       wgmma_pv<D>(o, a, vdesc + ((kk * 16 * ROW_BYTES) >> 4));
@@ -988,7 +1103,7 @@ EncodeTiled encoder() {
 
 constexpr int ERR_NO_ENCODER = -1, ERR_ENCODE = -2, ERR_HEAD_DIM = -3;
 
-// K or V [b, s, kv, d] as a 4-D map (d, kv, s, b), box (64, 1, TC_BK, 1)
+// K or V [b, s, kv, d] as a 4-D map (d, kv, s, b), box (64, 1, bk_of(d), 1)
 int encode_kv(CUtensorMap* map, const void* base, int b, int s, int kv, int D) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
@@ -996,7 +1111,7 @@ int encode_kv(CUtensorMap* map, const void* base, int b, int s, int kv, int D) {
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)kv * D * 2,
                                  (cuuint64_t)s * kv * D * 2};
-  const cuuint32_t box[4] = {64, 1, TC_BK, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)bk_of(D), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(base), dims, strides, box, estr,
@@ -1039,8 +1154,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // one dtype: dtype 0 = float32, 1 = bfloat16.  window < 0 = no window.
 // The caller checks 1 <= d <= fa_max_head_dim(), h % kv == 0 and that
 // the tensors are 16-byte aligned (both routes load 16 bytes at a time),
-// and for the tensor-core route that they are bfloat16 and d is 64 or
-// 128.  Launches on the caller's stream; returns the cudaError_t (0 =
+// and for the tensor-core route that they are bfloat16 and d is 64, 128
+// or 256.  Launches on the caller's stream; returns the cudaError_t (0 =
 // success) or a negative code of fa_error_string.  fa_smem_bytes is the
 // CUDA-core kernel's dynamic shared memory at head dim d.
 
@@ -1065,6 +1180,9 @@ extern "C" int fa_flash_attention_tc(const void* q, const void* k,
                                      void* stream) {
   if (b <= 0 || t <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (d == 256)
+    return tc::launch<256>(q, k, v, out, b, t, s, h, kv, causal, window,
+                           softcap, scale, st);
   if (d == 128)
     return tc::launch<128>(q, k, v, out, b, t, s, h, kv, causal, window,
                            softcap, scale, st);
@@ -1085,7 +1203,7 @@ extern "C" const char* fa_error_string(int err) {
     case tc::ERR_ENCODE:
       return "cuTensorMapEncodeTiled refused the K/V tensor map";
     case tc::ERR_HEAD_DIM:
-      return "the tensor-core kernel takes head_dim 64 or 128 only";
+      return "the tensor-core kernel takes head_dim 64, 128 or 256 only";
     default:
       return cudaGetErrorString((cudaError_t)err);
   }

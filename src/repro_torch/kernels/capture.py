@@ -54,7 +54,7 @@ def _counters() -> list[dict]:
         "cc_step", "fluid_reduce", "fluid_step", "flash_attention",
         "decode_attention")}
     return [m.LAUNCHES for m in mods.values()] + [
-        mods["flash_attention"].ROUTES]
+        mods["flash_attention"].ROUTES, mods["decode_attention"].PLANS]
 
 
 class CapturedGraph:

@@ -47,10 +47,11 @@ ROUTES = {"tensor_core": 0, "cuda_core": 0}
 #: bucket holds 64 rows of Q, three 32-key K/V slots and P in float32 in
 #: shared memory at this width
 MAX_HEAD_DIM = 256
-#: head_dims of the tensor-core kernel (bfloat16 only): one or two
-#: 64-column swizzled panels a row; at 256 its float32 O accumulator
-#: alone would take 128 registers a thread
-TC_HEAD_DIMS = (64, 128)
+#: head_dims of the tensor-core kernel (bfloat16 only): one, two or four
+#: 64-column swizzled panels a row.  At 256 a consumer thread's float32
+#: O takes 128 registers, so that width runs 64-key K/V tiles (S in 32
+#: registers) where 64 and 128 run 128-key tiles (``bk_of`` in the source)
+TC_HEAD_DIMS = (64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,8 +75,9 @@ def reset_launch_counts() -> None:
 
 def _route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call takes: "tensor_core" for bfloat16 at d in
-    ``TC_HEAD_DIMS``, else "cuda_core" (float32 at any d stays off TF32
-    tensor cores, which would break its 3e-5 bound)."""
+    ``TC_HEAD_DIMS`` (gemma2's 128, recurrentgemma's 256), else
+    "cuda_core" (float32 at any d stays off TF32 tensor cores, which
+    would break its 3e-5 bound; bf16 at the smoke configs' narrow d)."""
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
@@ -180,6 +182,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: no kernel or plain version for "
                          f"device {q.device}")
     refuse_autograd("flash_attention", q, k, v)
+    return _launch(_route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                   window=window, softcap=softcap, scale=scale)
+
+
+def _launch(route: str, q, k, v, *, causal: bool, window: int | None,
+            softcap: float, scale: float | None) -> torch.Tensor:
+    """One launch of ``route``'s kernel on checked CUDA tensors.
+    ``flash_attention`` passes ``_route``'s choice; the CUDA-core kernel
+    also takes bf16 at a tensor-core width when named here, which is how
+    chip_smoke times the two routes at one shape.  The tensor-core kernel
+    refuses a d outside ``TC_HEAD_DIMS`` (it raises)."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -189,7 +202,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if out.numel() == 0:            # nothing to launch, nothing counted
         return out
     lib = _lib()
-    route = _route(q.dtype, d)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     shape = (b, t, s, h, kv, d, int(causal),
              -1 if window is None else int(window), float(softcap),

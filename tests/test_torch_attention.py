@@ -207,14 +207,29 @@ def _plan_shapes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_plan_covers_every_key_once(dtype):
-    """At every shape: the lanes of a warp take each 16-byte chunk of a
-    row once, the tiles of a split and the splits take each key once,
-    the units take each (batch, query head) once, and no CTA needs
-    shared memory past the card's 232,448 B."""
+    """At every shape: the tiles of a split and the splits take each key
+    once, the units take each (batch, query head) once, and no CTA needs
+    shared memory past the card's 232,448 B.  On the split kernel the
+    lanes of a warp take each 16-byte chunk of a row once; on the group
+    kernel (bf16, g 6-16) one CTA takes all g heads of a kv head, so
+    each K/V row is loaded once per kv head."""
     esize = torch.empty((), dtype=dtype).element_size()
     for b, s, h, kv, d in _plan_shapes():
         pl = DA.decode_plan(b, s, h, kv, d, dtype)
         g = h // kv
+        assert pl.keys_per_split % pl.tile == 0
+        assert pl.part_rows in (b * h * pl.nsplit, 0)
+        assert pl.smem_bytes <= 232_448
+        seen = np.zeros(s, int)
+        if pl.kernel == "group":
+            assert dtype == torch.bfloat16 and 6 <= g <= 16, (b, s, h, kv, d)
+            assert pl.gc == g and pl.tile == DA.GROUP_TILE
+            assert pl.units == pl.ctas == b * kv * pl.nsplit
+            for sp in range(pl.nsplit):
+                k0 = sp * pl.keys_per_split
+                seen[k0:min(s, k0 + pl.keys_per_split)] += 1
+            assert (seen == 1).all(), (b, s, h, kv, d)
+            continue
         assert g % pl.gc == 0 and pl.gc in (1, 2, 4)
         nch = -(-d * esize // 16)
         assert pl.lpr & (pl.lpr - 1) == 0 and pl.lpr <= 32
@@ -222,8 +237,6 @@ def test_decode_plan_covers_every_key_once(dtype):
                         for c in range(pl.vpl))
         assert chunks[:nch] == list(range(nch))      # each chunk once
         assert pl.tile == pl.rows * 32 // pl.lpr
-        assert pl.keys_per_split % pl.tile == 0
-        seen = np.zeros(s, int)
         for sp in range(pl.nsplit):
             k0, k1 = sp * pl.keys_per_split, min(s, (sp + 1)
                                                  * pl.keys_per_split)
@@ -237,13 +250,13 @@ def test_decode_plan_covers_every_key_once(dtype):
         assert pl.units == b * pl.nsplit * kv * (g // pl.gc)
         assert pl.ctas * DA.WARPS_PER_CTA >= pl.units
         assert pl.part_rows == b * h * pl.nsplit
-        assert pl.smem_bytes <= 232_448
 
 
 def test_decode_plan_fills_the_card_at_the_serve_shape():
     """The serve cell's 64 (batch, kv head) pairs are split so the units
     fill 132 SMs x 16 resident warps in one wave, to within the rounding
-    of a split to the tile; the merge's split weights fit 8.5 KB."""
+    of a split to the tile; the merge stages at most 8.5 KB of split
+    weights (and as much of l)."""
     want = DA.N_SM * DA.CTAS_PER_SM * DA.WARPS_PER_CTA
     for s in (4352, 4096):
         pl = DA.decode_plan(4, s, 32, 16, 128, torch.bfloat16)
@@ -450,15 +463,15 @@ def _route_cases():
     return sorted(dims)
 
 
-def test_route_is_the_tensor_core_kernel_exactly_for_bf16_at_64_and_128():
+def test_route_is_the_tensor_core_kernel_exactly_for_bf16_at_64_128_and_256():
     dims = _route_cases()
     assert {8, 16, 32, 64, 128, 256} <= set(dims), dims
     for d in dims:
         for dtype in (torch.float32, torch.bfloat16):
             want = ("tensor_core" if dtype == torch.bfloat16
-                    and d in (64, 128) else "cuda_core")
+                    and d in (64, 128, 256) else "cuda_core")
             assert FA._route(dtype, d) == want, (dtype, d)
-    assert FA.TC_HEAD_DIMS == (64, 128)
+    assert FA.TC_HEAD_DIMS == (64, 128, 256)
 
 
 def test_cpu_calls_count_no_route():
@@ -479,21 +492,27 @@ def _cu_source(src):
 def test_tensor_core_shared_memory_fits_the_card():
     """The tensor-core kernel's dynamic shared memory, from the constants
     in its source (alignment slack, a Q block of TC_BM rows, TC_STAGES
-    pairs of K/V tiles of TC_BK keys, 3 mbarriers a stage), at each
-    routed head_dim is at most the 232,448 B a block may use on an H100."""
+    pairs of K/V tiles of bk_of(d) keys: TC_BK at d 64 / 128, TC_BK_D256
+    at d 256, 3 mbarriers a stage), at each routed head_dim is at most
+    the 232,448 B a block may use on an H100."""
     import re
     text = _cu_source("flash_attention.cu")
     c = {name: int(re.search(r"constexpr int " + name + r" = (\d+);",
                              text).group(1))
-         for name in ("TC_BM", "TC_BK", "TC_STAGES", "TC_ALIGN")}
+         for name in ("TC_BM", "TC_BK", "TC_BK_D256", "TC_STAGES",
+                      "TC_ALIGN")}
     assert "return TC_ALIGN + q_bytes(D) + TC_STAGES * 2 * tile_bytes(D)" \
         in text
+    assert "return D == 256 ? TC_BK_D256 : TC_BK;" in text
+    assert "tile_bytes(int D) { return bk_of(D) * D * 2; }" in text
     for d in FA.TC_HEAD_DIMS:
+        bk = c["TC_BK_D256"] if d == 256 else c["TC_BK"]
         total = (c["TC_ALIGN"] + c["TC_BM"] * d * 2
-                 + c["TC_STAGES"] * 2 * c["TC_BK"] * d * 2
+                 + c["TC_STAGES"] * 2 * bk * d * 2
                  + c["TC_STAGES"] * 3 * 8)
         assert total <= 232_448, (d, total)
-    assert c["TC_BM"] == 128 and c["TC_BK"] % 16 == 0
+        assert bk % 16 == 0
+    assert c["TC_BM"] == 128 and 256 in FA.TC_HEAD_DIMS
 
 
 # ---------------------------------------------------------------------------
@@ -567,16 +586,19 @@ def test_decode_kernel_on_cuda():
         torch.cuda.synchronize()
         np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), **F32)
     assert DA.LAUNCHES["decode_attention"] == len(DECODE_CASES)
-    # the split kernel's tiling edges: d 8-256, GQA groups 1-8, a cache no
-    # multiple of the tile with its second tile invalid, and batch row 1
-    # with no valid slot (the kernel's 0); the library's tile is the plan's
+    # the kernels' tiling edges: d 8-256, GQA groups 1-8 (bf16 at g 8 and
+    # d 64-256: the group kernel), a cache no multiple of the tile with
+    # its second tile invalid, and batch row 1 with no valid slot (the
+    # kernel's 0); the library's tile is the plan's
     lib = DA._lib()
     for d in (8, 32, 64, 128, 256):
         for grp in (1, 2, 4, 8):
             for dtype, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
                 plan = DA.decode_plan(2, 1, 2 * grp, 2, d, dtype)
-                assert lib.da_tile_keys(int(dtype == torch.bfloat16), d,
-                                        plan.gc) == plan.tile
+                assert plan.tile == (
+                    lib.da_group_tile_keys() if plan.kernel == "group"
+                    else lib.da_tile_keys(int(dtype == torch.bfloat16), d,
+                                          plan.gc))
                 s = 5 * plan.tile + 3
                 q, k, v, valid = _decode_inputs(d + grp, 2, s, 2 * grp, 2, d)
                 valid[:, plan.tile:2 * plan.tile] = False

@@ -343,8 +343,8 @@ def test_serve_engine_captures_once_on_cuda():
 
 def test_capture_counts_every_kernel_module():
     """The counters a captured graph keeps in step are every kernel
-    module's ``LAUNCHES`` (and flash's ``ROUTES``), the module dicts
-    themselves."""
+    module's ``LAUNCHES`` (and flash's ``ROUTES``, decode's ``PLANS``),
+    the module dicts themselves."""
     from repro_torch.kernels import capture
     got = capture._counters()
     for name in ("cc_step", "fluid_reduce", "fluid_step", "flash_attention",
@@ -353,3 +353,5 @@ def test_capture_counts_every_kernel_module():
         assert any(c is mod.LAUNCHES for c in got), name
     assert any(c is importlib.import_module(
         "repro_torch.kernels.flash_attention").ROUTES for c in got)
+    assert any(c is importlib.import_module(
+        "repro_torch.kernels.decode_attention").PLANS for c in got)

@@ -359,8 +359,9 @@ def test_run_all_schemes_is_the_sweep_and_the_reference(scheme_runs,
 def test_cuda_core_route_at_every_bucket_on_cuda():
     """The kernel against its plain version (run in float32 on the same
     values) at MODEL_DIMS in both dtypes: 3e-5 in float32, 2e-2 in
-    bfloat16; every launch on the CUDA-core route, two launches bitwise
-    equal."""
+    bfloat16 (at d 256, which ``_route`` sends to the tensor cores, the
+    CUDA-core kernel launched by name); every launch on the CUDA-core
+    route, two launches bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU form)")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -368,19 +369,22 @@ def test_cuda_core_route_at_every_bucket_on_cuda():
     n = 0
     for b, t, h, kv, d, causal, window, cap in MODEL_DIMS:
         for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
-            if FA._route(dtype, d) != "cuda_core":
-                continue
             q, k, v = [torch.from_numpy(x).to(dev, dtype) for x in _inputs(
                 d + int(cap), b, t, t, h, kv, d, 2.0 if cap else 0.3)]
             kw = dict(causal=causal, window=window, softcap=cap)
-            got = FA.flash_attention(q, k, v, **kw)
+            # bf16 at d 256 routes to the tensor cores: the CUDA-core
+            # kernel is launched by name there
+            run = (lambda: FA.flash_attention(q, k, v, **kw)) \
+                if FA._route(dtype, d) == "cuda_core" else \
+                (lambda: FA._launch("cuda_core", q, k, v, scale=None, **kw))
+            got = run()
             want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
                                             **kw)
             torch.cuda.synchronize()
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.cpu().numpy(), atol=tol,
                                        rtol=tol)
-            assert torch.equal(got, FA.flash_attention(q, k, v, **kw))
+            assert torch.equal(got, run())
             n += 2
     assert FA.ROUTES == {"tensor_core": 0, "cuda_core": n}
     assert FA.LAUNCHES["flash_attention"] == n
