@@ -2630,6 +2630,9 @@ def phase_attention(device) -> dict:
             "kernel_softcap0_us": _event_ms(
                 lambda: FA.flash_attention(q, k, v, **kw), 10) * 1e3,
             "max_abs_err_vs_kernel": err}
+        # kernel / SDPA on the same function (softcap 0): < 1 is faster
+        sdpa[layer]["sdpa_ratio"] = (sdpa[layer]["kernel_softcap0_us"]
+                                     / sdpa[layer]["library_us"])
     flex = {}
     for layer, window in (("global", None), ("local", 4096)):
         lib = _flex_call(qT, kT, vT, window=window, valid=None)
@@ -3536,6 +3539,8 @@ def _family_attention(device) -> dict:
             "max_row_rel_err": row_err, "sdpa_max_abs_err": lib_err, **old}
         if old:
             flash[arch]["speedup_over_cuda_core"] = old["cuda_core_ms"] / ms
+        if d == 128:             # kernel / SDPA: < 1 is faster
+            flash[arch]["sdpa_ratio"] = ms / flash[arch]["library_ms"]
         del q, k, v, qT, kT, vT, lib, got
         torch.cuda.empty_cache()
     for arch, (b, s, h, kv, d), n_valid, with_flex in FAM_DECODE:

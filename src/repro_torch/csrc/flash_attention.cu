@@ -30,31 +30,50 @@
 // from q's dtype and head_dim, both computing the above:
 //
 // * Tensor cores (fa_flash_attention_tc): bfloat16 at d in {64, 128,
-//   256}: every bf16 call of gemma2's prefill (d 128) and recurrentgemma's
-//   (d 256).  Bound on this card: operations (4 * visible pairs * h * d
-//   flops at 989 TFLOP/s; at the serve cell also the SFU: one ex2 and,
-//   with a softcap, one tanh per visible logit at 16 a clock per SM).
-//   Design, for Hopper: one CTA of 384 threads takes 128 folded rows of
-//   one (batch, kv head) -- a producer warpgroup and two consumer
-//   warpgroups of 64 rows (one wgmma M each).  Q is loaded once by the
-//   consumers into 128-byte-swizzled shared memory; K and V tiles of BK
-//   keys (bk_of: 128 at d 64 / 128, 64 at d 256) stream through a
-//   2-stage ring filled by TMA (4-D maps (d, kv, s, b), box (64, 1, BK,
-//   1), 128-byte swizzle; out-of-bounds rows past s arrive as zeros) with
-//   full/empty mbarriers.  S = Q K^T is wgmma m64nBKk16 from shared
-//   memory; scale, softcap (tanh.approx.f32) and masks act on the float32
-//   accumulator fragments, in log2 units so the softmax is one
-//   ex2.approx a logit; row max / sum over the 4 lanes of a row.  P is
-//   rounded to bf16 in registers (as the plain version rounds the
-//   weights to q's dtype) and is wgmma's A operand for O += P V
-//   (m64n{d}k16), V read MN-major (the transpose bit).  Registers set
-//   the tile: a consumer thread holds S (BK / 2 floats), O (d / 2) and P
-//   (BK / 4 pairs), so d 256 takes 64-key tiles (32 + 128 + 16) and
-//   setmaxnreg gives the consumers 240 and the producer 24 (232 / 40 at
-//   d 64 / 128, where S and O are 64 floats each at d 128).  Heavy causal
-//   q blocks launch first.  tanh.approx has a relative error of about
-//   2^-11; the error it adds is measured by chip_smoke at caps 2, 5 and
-//   50 against the 2e-2 bound.
+//   256}: every bf16 call of the served prefills (gemma2, deepseek,
+//   mixtral, internvl2 at d 128; whisper at 64; recurrentgemma at 256).
+//   Bound on this card: operations (4 * visible pairs * h * d flops at
+//   989 TFLOP/s; at the serve cell also the SFU: one ex2 and, with a
+//   softcap, one tanh per visible logit at 16 a clock per SM).
+//   Common to both kernels: a CTA of 384 threads -- a producer warpgroup
+//   and two consumer warpgroups of 64 folded rows each (one wgmma M) --
+//   takes TC_BM = 128 rows of one (batch, kv head).  Q sits in
+//   128-byte-swizzled shared memory; K and V tiles of BK keys (bk_of: 128
+//   at d 64 / 128, 64 at d 256) stream through a 2-stage ring filled by
+//   TMA (4-D maps (d, kv, s, b), box (64, 1, BK, 1), 128-byte swizzle;
+//   rows past s arrive as zeros) with full/empty mbarriers.  S = Q K^T is
+//   wgmma m64nBKk16 from shared memory; scale, softcap (tanh.approx.f32)
+//   and masks act on the float32 accumulator fragments, in log2 units so
+//   the softmax is one ex2.approx a logit; row max / sum over the 4 lanes
+//   of a row.  P is rounded to bf16 in registers (as the plain version
+//   rounds the weights to q's dtype) and is wgmma's A operand for O += P
+//   V (m64n{d}k16), V read MN-major (the transpose bit).  tanh.approx has
+//   a relative error of about 2^-11; the error it adds is measured by
+//   chip_smoke at caps 2, 5 and 50 against the 2e-2 bound.
+//   - d 64 and 256 (flash_tc_kernel): one CTA a q block, heavy causal
+//     blocks first; each consumer runs S, softmax and P V of a tile in
+//     series.  Registers set the tile: a consumer thread holds S (BK / 2
+//     floats), O (d / 2) and P (BK / 4 pairs), so d 256 takes 64-key
+//     tiles (32 + 128 + 16) and setmaxnreg gives the consumers 240 and
+//     the producer 24 (232 / 40 at d 64).
+//   - d 128 (flash_tc128_kernel), the served width where the serial walk
+//     lost to SDPA: the softmax runs beside the products.  A consumer
+//     issues S of tile i and P V of tile i - 1 together and runs the
+//     softmax of S_i while P_{i-1} V_{i-1} is in flight (S 64 + P 32 + O
+//     64 floats a thread, setmaxnreg 240 / 24); the two consumers take
+//     turns to issue (named barriers 3 and 4), so one's softmax runs
+//     beside the other's products.  The grid is persistent, one CTA an
+//     SM, each walking a fixed list of (q block, batch x kv head) items,
+//     heaviest first in a snake over rounds (item_of), as one stream of
+//     tiles: the first S of an item is issued beside the last P V of the
+//     item before, and each item's Q rows load by cp.async one item ahead
+//     into a second Q buffer (197,696 B of shared memory).  Every float
+//     operation of a row is flash_tc_kernel's at d 128, in its order, so
+//     the output is that kernel's bit for bit.  What holds it back on the
+//     card (PERF.md): a wgmma issue waits for the tensor cores, so a
+//     consumer's period is its own S, its softmax and the P pack, and the
+//     softmax (64 ex2 a thread a tile at 16 a clock per SM) is longer than
+//     the other consumer's products.
 //
 // * CUDA cores (fa_flash_attention): float32 at any d (one-pass TF32
 //   wgmma would break the 3e-5 float32 bound; the 3xTF32 split would
@@ -628,12 +647,20 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // keep the compiler from moving accesses of wgmma's registers across
 // the asynchronous start and wait of a wgmma
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -837,7 +864,6 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 256) wgmma_rs_n256(o, a, db, 1);
-  else if constexpr (D == 128) wgmma_rs_n128(o, a, db, 1);
   else wgmma_rs_n64(o, a, db, 1);
 }
 
@@ -852,8 +878,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
                 const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ out, int t, int s, int h, int kv,
                 int causal, int window, float qk_mul, float cap2) {
-  static_assert(D == 64 || D == 128 || D == 256,
-                "tensor-core route: d in {64, 128, 256}");
+  static_assert(D == 64 || D == 256,
+                "tensor-core route: d 64 or 256 (d 128: flash_tc128_kernel)");
   constexpr int BK = bk_of(D);               // keys per kv tile
   constexpr int PANELS = D / 64;             // 64-column panels of d
   constexpr int QW_BYTES = 64 * D * 2;       // one consumer's Q rows
@@ -1073,6 +1099,471 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tmk,
   }
 }
 
+// ---- d 128: the products of one tile overlap the softmax of the next --------
+
+constexpr int T128_STAGES = 2;    // depth of the K/V ring at d 128
+constexpr int SCHED_BAR = 3;      // named barriers 3, 4: whose turn to issue
+
+// Dynamic shared memory at d 128: alignment slack, two Q buffers of
+// TC_BM rows (an item's and the next item's), T128_STAGES x (K tile + V
+// tile) of 128 keys, and 4 mbarriers a stage (K full, V full, K empty, V
+// empty): 1,024 + 65,536 + 131,072 + 64 = 197,696 B.
+__host__ __device__ constexpr int smem128_bytes() {
+  return TC_ALIGN + 2 * q_bytes(128) + T128_STAGES * 2 * tile_bytes(128)
+         + T128_STAGES * 4 * 8;
+}
+
+// S = Q K^T (64 x 128 keys, float32) over d 128, as one commit group
+__device__ __forceinline__ void qk128(float (&sc)[64], uint64_t qdesc,
+                                      uint64_t kdesc) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss_n128(sc, qdesc + (((kk / 4) * 64 * ROW_BYTES + (kk % 4) * 32) >> 4),
+                  kdesc + (((kk / 4) * 128 * ROW_BYTES + (kk % 4) * 32) >> 4),
+                  kk > 0);
+  wg_commit();
+}
+
+// O += P V (V MN-major, its two 64-column panels LBO apart), one group
+__device__ __forceinline__ void pv128(float (&o)[64], const uint32_t (&pa)[32],
+                                      uint64_t vdesc) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                           pa[4 * kk + 3]};
+    wgmma_rs_n128(o, a, vdesc + ((kk * 16 * ROW_BYTES) >> 4), 1);
+  }
+  wg_commit();
+}
+
+// The softmax of one 128-key tile starting at key k0, as flash_tc_kernel
+// computes it: logits in log2 units (scale, softcap, then the masks:
+// NEG), the row max over the quad, corr = ex2(m_old - m_new) (1 while
+// m_old == NEG), l *= corr, then sc becomes the weights ex2(x - m) (0
+// where masked) and l gains them pair by pair.  Masks compare 32-bit
+// positions and are evaluated only where the tile is not all visible.
+__device__ __forceinline__ void softmax128(
+    float (&sc)[64], float (&m)[2], float (&l)[2], float (&corr)[2], int k0,
+    const int (&pos)[2], int c2, int s, int causal, int window, int qfirst,
+    int qlast, float qk_mul, float cap2) {
+  if (cap2 > 0.0f) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) sc[x] = cap2 * tanh_fast(sc[x] * qk_mul);
+  } else {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) sc[x] *= qk_mul;
+  }
+  const bool all_visible = k0 + 128 <= s
+                           && (!causal || k0 + 127 <= qfirst)
+                           && (window < 0 || k0 > qlast - window);
+  if (!all_visible) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      const int kpos = k0 + 8 * (x / 4) + c2 + (x & 1);
+      const int p = pos[(x / 2) & 1];
+      bool ok = kpos < s;
+      if (causal) ok = ok && kpos <= p;
+      if (window >= 0) ok = ok && kpos > p - window;
+      if (!ok) sc[x] = NEG;
+    }
+  }
+  // the row max as a tree (a max does not depend on the order)
+  float mt[2][16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      mt[e][j] = fmaxf(sc[4 * j + 2 * e], sc[4 * j + 2 * e + 1]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mt[e][j] = fmaxf(mt[e][j], mt[e][j + 8]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mt[e][j] = fmaxf(mt[e][j], mt[e][j + 4]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mt[e][j] = fmaxf(mt[e][j], mt[e][j + 2]);
+    mt[e][0] = fmaxf(mt[e][0], mt[e][1]);
+  }
+  float mx[2] = {fmaxf(m[0], mt[0][0]), fmaxf(m[1], mt[1][0])};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+    corr[e] = m[e] == NEG ? 1.0f : ex2(m[e] - mx[e]);
+    m[e] = mx[e];
+    l[e] *= corr[e];
+  }
+  // the weights, with no select: a masked logit (NEG) gives ex2(NEG - m)
+  // = +0 where m is finite, and ex2(NEG - 0) = +0 on a row with nothing
+  // visible yet (m == NEG, every logit NEG): the parent's 0 either way,
+  // while a visible logit always has a finite m
+  float mv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) mv[e] = m[e] == NEG ? 0.0f : m[e];
+#pragma unroll
+  for (int x = 0; x < 64; x += 2) {
+    const int e = (x / 2) & 1;
+    const float p0 = ex2(sc[x] - mv[e]);
+    const float p1 = ex2(sc[x + 1] - mv[e]);
+    l[e] += p0 + p1;
+    sc[x] = p0;
+    sc[x + 1] = p1;
+  }
+}
+
+// P to bf16 pairs (as the plain version rounds the weights to q's dtype)
+// and O carried to the new row max
+__device__ __forceinline__ void pack_rescale128(const float (&sc)[64],
+                                                uint32_t (&pa)[32],
+                                                float (&o)[64],
+                                                const float (&corr)[2]) {
+#pragma unroll
+  for (int x = 0; x < 64; x += 2) pa[x / 2] = pack_bf16(sc[x], sc[x + 1]);
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] *= corr[(x / 2) & 1];
+}
+
+// The work of one launch at d 128: item w in [0, nqb * nbkv) is q block
+// nqb - 1 - w / nbkv (TC_BM folded rows) of (batch, kv head) w % nbkv, so
+// the heaviest causal blocks come first.  CTA c of G takes item r * G + c
+// of round r, or r * G + G - 1 - c in odd rounds: a snake, so that the
+// heavy and light ends of consecutive rounds pair up on one CTA.  The
+// order is fixed by (c, G) alone, and an item's arithmetic does not
+// depend on which CTA runs it, so reruns are bitwise equal.
+__host__ __device__ constexpr int item_of(int c, int r, int G) {
+  return r * G + ((r & 1) ? G - 1 - c : c);
+}
+
+struct Item128 {
+  long long r0;                    // first folded row
+  int bb, kh;                      // batch, kv head
+  int qfirst, qlast;               // positions of the first and last row
+  int jlo, n;                      // kv tiles [jlo, jlo + n)
+};
+
+// kv tiles [jlo, jhi): stop at the first all-future tile, skip the tiles
+// entirely behind the window of the block's first position
+__device__ __forceinline__ Item128 item128(int w, int nbkv, int nqb, int kv,
+                                           long long nrows, int g, int s,
+                                           int causal, int window) {
+  Item128 x;
+  const int qb = nqb - 1 - w / nbkv, bkv = w % nbkv;
+  x.bb = bkv / kv;
+  x.kh = bkv % kv;
+  x.r0 = (long long)qb * TC_BM;
+  const long long rlast = (x.r0 + TC_BM < nrows ? x.r0 + TC_BM : nrows) - 1;
+  // positions fit 32 bits (t < 2^31): masks compare ints
+  x.qfirst = (int)(x.r0 / g);
+  x.qlast = (int)(rlast / g);
+  int jhi = (s + 127) / 128;
+  if (causal && x.qlast / 128 + 1 < jhi) jhi = x.qlast / 128 + 1;
+  x.jlo = 0;
+  if (window >= 0) {
+    const int y = x.qfirst - window - 127;
+    if (y >= 0) x.jlo = y / 128 + 1;
+  }
+  x.n = jhi > x.jlo ? jhi - x.jlo : 0;
+  return x;
+}
+
+// One warpgroup's 64 rows of item x -> out: acc / max(l, 1e-30), l
+// summed over the quad, in q's dtype (rows past t * g are not written).
+// With zero set, zeros: the output of an item that sees no key.
+__device__ __forceinline__ void store128(__nv_bfloat16* __restrict__ out,
+                                         const float (&o)[64],
+                                         const float (&lsum)[2],
+                                         const Item128& x, int cw, int rl,
+                                         int c2, int t, int h, int g,
+                                         long long nrows, bool zero) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float l = lsum[e];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const long long R = x.r0 + 64 * cw + rl + 8 * e;
+    if (R >= nrows) continue;
+    const float inv = 1.0f / fmaxf(l, 1e-30f);
+    const long long pos = R / g;
+    const int gi = (int)(R - pos * g);
+    __nv_bfloat16* dst =
+        out + ((x.bb * (long long)t + pos) * h + x.kh * g + gi) * 128 + c2;
+#pragma unroll
+    for (int y = 0; y < 16; ++y)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * y) =
+          zero ? __floats2bfloat162_rn(0.0f, 0.0f)
+               : __floats2bfloat162_rn(o[4 * y + 2 * e] * inv,
+                                       o[4 * y + 2 * e + 1] * inv);
+  }
+}
+
+// One warpgroup's 64 Q rows of item x -> its half of a Q buffer at qs, in
+// the layout TMA's 128-byte swizzle gives (as flash_tc_kernel), by
+// cp.async so a thread's 8 chunks are in flight together; rows past t * g
+// are zero-filled
+__device__ __forceinline__ void load_q128(const __nv_bfloat16* __restrict__ q,
+                                          uint32_t qs, const Item128& x,
+                                          int cw, int tid, int t, int h,
+                                          int g, long long nrows) {
+#pragma unroll
+  for (int i = tid; i < 64 * 16; i += 128) {
+    const int r = i / 16, ch = i % 16;
+    const long long R = x.r0 + 64 * cw + r;
+    const bool ok = R < nrows;
+    const long long pos = ok ? R / g : 0;
+    const int gi = ok ? (int)(R - pos * g) : 0;
+    const __nv_bfloat16* src =
+        q + ((x.bb * (long long)t + pos) * h + x.kh * g + gi) * 128 + ch * 8;
+    const uint32_t dst = qs + (ch / 8) * (64 * ROW_BYTES) + r * ROW_BYTES
+                         + (((ch % 8) ^ (r % 8)) * 16);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+  }
+}
+
+// grid min(items, SMs), persistent; block TC_THREADS; dynamic smem
+// smem128_bytes().  The function of flash_tc_kernel at D = 128, every
+// float operation of a row in the same order, so the output is that
+// kernel's, bit for bit.  What differs is when:
+// - a consumer warpgroup issues S_i = Q K_i^T and O += P_{i-1} V_{i-1}
+//   together and runs the softmax of S_i while P_{i-1} V_{i-1} is in
+//   flight;
+// - the two warpgroups take turns to issue (named barriers SCHED_BAR +
+//   cw), so one warpgroup's softmax runs beside the other's products;
+// - a CTA walks its items (item_of) as one stream of kv tiles: the
+//   producer fills one ring without a break; a consumer issues the first
+//   S of an item beside the last P V of the one before, stores that
+//   item's rows once its P V is done and restarts O by a rescale with
+//   corr = 0; each item's Q rows load one item ahead into the second Q
+//   buffer.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc128_kernel(const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv,
+                   const __nv_bfloat16* __restrict__ q,
+                   __nv_bfloat16* __restrict__ out, int b, int t, int s,
+                   int h, int kv, int causal, int window, float qk_mul,
+                   float cap2) {
+  constexpr int D = 128, BK = 128, ST = T128_STAGES;
+  constexpr int QW_BYTES = 64 * D * 2;       // one consumer's Q rows
+  constexpr int PANEL_KV = BK * ROW_BYTES;
+  constexpr int TILE = BK * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + TC_ALIGN - 1) & ~(uint32_t)(TC_ALIGN - 1);
+  const uint32_t sk = sq + 2 * q_bytes(D);
+  const uint32_t sv = sk + ST * TILE;
+  const uint32_t sbar = sv + ST * TILE;
+  auto full_k = [&](int st) { return sbar + 8 * st; };
+  auto full_v = [&](int st) { return sbar + 8 * (ST + st); };
+  auto empty_k = [&](int st) { return sbar + 8 * (2 * ST + st); };
+  auto empty_v = [&](int st) { return sbar + 8 * (3 * ST + st); };
+
+  const int G = gridDim.x, c = blockIdx.x;
+  const int g = h / kv, nbkv = b * kv;
+  const long long nrows = (long long)t * g;
+  const int nqb = (int)((nrows + TC_BM - 1) / TC_BM);
+  const int total = nqb * nbkv;
+  auto item = [&](int w) {
+    return item128(w, nbkv, nqb, kv, nrows, g, s, causal, window);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), 256);         // every consumer thread
+      mbar_init(empty_v(st), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, item after item ------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;                  // tiles through the ring so far
+      for (int r = 0; r * G < total; ++r) {
+        const int w = item_of(c, r, G);
+        if (w >= total) continue;
+        const Item128 x = item(w);
+        for (int i = 0; i < x.n; ++i, ++it) {
+          const int key = (x.jlo + i) * BK, st = it % ST;
+          const uint32_t par = ((it / ST) & 1) ^ 1;
+          mbar_wait(empty_k(st), par);
+          mbar_expect_tx(full_k(st), TILE);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            tma_load_4d(sk + st * TILE + p * PANEL_KV, &tmk, full_k(st),
+                        p * 64, x.kh, key, x.bb);
+          mbar_wait(empty_v(st), par);
+          mbar_expect_tx(full_v(st), TILE);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            tma_load_4d(sv + st * TILE + p * PANEL_KV, &tmv, full_v(st),
+                        p * 64, x.kh, key, x.bb);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows each --------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid / 32, lane = tid % 32;
+  // this thread's rows of the m64 fragments: rl and rl + 8
+  const int rl = warp * 16 + lane / 4, c2 = (lane % 4) * 2;
+  auto qs = [&](int sel) { return sq + sel * q_bytes(D) + cw * QW_BYTES; };
+  // this warpgroup's Q copies have landed (generic-proxy writes ->
+  // visible to wgmma) and its threads meet: every S it issued before has
+  // finished reading the other Q buffer
+  auto q_ready = [&]() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+  };
+  // the next item of the walk with kv tiles to visit, from round r on;
+  // the rows of an item with none are zeros (no key is visible there)
+  auto next = [&](int& r, Item128& x) {
+    for (; r * G < total; ++r) {
+      const int w = item_of(c, r, G);
+      if (w >= total) continue;
+      x = item(w);
+      if (x.n > 0) {
+        ++r;
+        return true;
+      }
+      const float none[2] = {}, zeros[64] = {};
+      store128(out, zeros, none, x, cw, rl, c2, t, h, g, nrows, true);
+    }
+    return false;
+  };
+
+  // Turns: warpgroup 0 issues first, then each passes to the other; both
+  // walk the same tiles and take the same turns, and warpgroup 0 takes
+  // one more at the end, so every arrival is matched
+  auto take_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(SCHED_BAR + cw) : "memory");
+  };
+  auto pass_turn = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(SCHED_BAR + 1 - cw)
+                 : "memory");
+  };
+  if (cw == 0)
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(SCHED_BAR) : "memory");
+
+  auto kdesc = [&](int st) { return make_desc(sk + st * TILE, 16, 1024); };
+  auto vdesc = [&](int st) {
+    return make_desc(sv + st * TILE, PANEL_KV, 1024);
+  };
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  float sc[BK / 2];                // S_i, then its weights P_i in float32
+  uint32_t pa[BK / 4];             // P_{i-1} as bf16 pairs: wgmma's A
+  float corr[2];
+  int pos[2];                      // positions of this thread's two rows
+  auto rows_of = [&](const Item128& x) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      pos[e] = (int)((x.r0 + 64 * cw + rl + 8 * e) / g);
+  };
+
+  int r = 0;
+  Item128 cur, nxt;                // the item of the S in hand, the next
+  if (next(r, cur)) {
+    load_q128(q, qs(0), cur, cw, tid, t, h, g, nrows);
+    bool more = next(r, nxt);
+    q_ready();
+    if (more) load_q128(q, qs(1), nxt, cw, tid, t, h, g, nrows);
+    rows_of(cur);
+    // turn 0: S of the first tile alone
+    mbar_wait(full_k(0), 0);
+    __syncwarp();
+    take_turn();
+    wg_fence();
+    qk128(sc, make_desc(qs(0), 16, 1024), kdesc(0));
+    pass_turn();
+    wg_wait0();
+    reg_fence(sc);
+    mbar_arrive(empty_k(0));
+    softmax128(sc, m, l, corr, cur.jlo * BK, pos, c2, s, causal, window,
+               cur.qfirst, cur.qlast, qk_mul, cap2);
+    pack_rescale128(sc, pa, o, corr);
+    Item128 prev = cur;            // the item O accumulates
+    int i = 0, sel = 0, it = 0;    // tile of cur, its Q buffer, ring index
+    // turn it: S of tile it and P V of tile it - 1, then the softmax of
+    // S while P V runs
+    while (true) {
+      bool first = false;          // tile it is an item's first
+      if (i + 1 < cur.n) {
+        ++i;
+      } else if (more) {
+        cur = nxt;
+        more = next(r, nxt);
+        i = 0;
+        sel ^= 1;
+        first = true;
+        rows_of(cur);
+      } else {
+        break;
+      }
+      ++it;
+      if (first) {
+        q_ready();
+        if (more) load_q128(q, qs(sel ^ 1), nxt, cw, tid, t, h, g, nrows);
+      }
+      const int st = it % ST, pst = (it - 1) % ST;
+      mbar_wait(full_k(st), (it / ST) & 1);
+      mbar_wait(full_v(pst), ((it - 1) / ST) & 1);
+      __syncwarp();
+      take_turn();
+      wg_fence();
+      qk128(sc, make_desc(qs(sel), 16, 1024), kdesc(st));
+      pv128(o, pa, vdesc(pst));
+      pass_turn();
+      wg_wait1();
+      reg_fence(sc);
+      mbar_arrive(empty_k(st));
+      const float lp[2] = {l[0], l[1]};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m[e] = first ? NEG : m[e];
+        l[e] = first ? 0.0f : l[e];
+      }
+      softmax128(sc, m, l, corr, (cur.jlo + i) * BK, pos, c2, s, causal,
+                 window, cur.qfirst, cur.qlast, qk_mul, cap2);
+      wg_wait0();
+      reg_fence(o);
+      reg_fence(pa);
+      mbar_arrive(empty_v(pst));
+      if (first) {                 // prev is done: its rows, then O = 0
+        store128(out, o, lp, prev, cw, rl, c2, t, h, g, nrows, false);
+        corr[0] = corr[1] = 0.0f;
+        prev = cur;
+      }
+      pack_rescale128(sc, pa, o, corr);
+    }
+    // the last P V
+    const int pst = it % ST;
+    mbar_wait(full_v(pst), (it / ST) & 1);
+    __syncwarp();
+    take_turn();
+    wg_fence();
+    pv128(o, pa, vdesc(pst));
+    pass_turn();
+    wg_wait0();
+    reg_fence(o);
+    reg_fence(pa);
+    mbar_arrive(empty_v(pst));
+    store128(out, o, l, prev, cw, rl, c2, t, h, g, nrows, false);
+  }
+  if (cw == 0) take_turn();        // warpgroup 1's last pass
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -1133,17 +1624,38 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
     if (err == 0) err = encode_kv(&tmv, v, b, s, kv, D);
     if (err != 0) return err;
   }
-  const int bytes = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long nrows = (long long)t * (h / kv);
-  dim3 grid((unsigned)((nrows + TC_BM - 1) / TC_BM), (unsigned)(b * kv));
   const float qk_mul = softcap > 0.0f ? scale / softcap : scale * LOG2E;
   const float cap2 = softcap > 0.0f ? softcap * LOG2E : 0.0f;
-  flash_tc_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
-      tmk, tmv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, t, s, h, kv,
-      causal, window, qk_mul, cap2);
+  const long long nrows = (long long)t * (h / kv);
+  const int nqb = (int)((nrows + TC_BM - 1) / TC_BM);
+  if constexpr (D == 128) {
+    // one persistent CTA an SM (at most one item each)
+    const int bytes = smem128_bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long items = (long long)nqb * b * kv;
+    const int grid = (int)(items < sms ? items : sms);
+    flash_tc128_kernel<<<grid, TC_THREADS, bytes, stream>>>(
+        tmk, tmv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, b, t, s, h,
+        kv, causal, window, qk_mul, cap2);
+  } else {
+    const int bytes = smem_bytes(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((unsigned)nqb, (unsigned)(b * kv));
+    flash_tc_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+        tmk, tmv, (const __nv_bfloat16*)q, (__nv_bfloat16*)out, t, s, h, kv,
+        causal, window, qk_mul, cap2);
+  }
   return (int)cudaGetLastError();
 }
 

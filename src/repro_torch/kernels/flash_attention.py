@@ -47,10 +47,12 @@ ROUTES = {"tensor_core": 0, "cuda_core": 0}
 #: bucket holds 64 rows of Q, three 32-key K/V slots and P in float32 in
 #: shared memory at this width
 MAX_HEAD_DIM = 256
-#: head_dims of the tensor-core kernel (bfloat16 only): one, two or four
+#: head_dims of the tensor-core kernels (bfloat16 only): one, two or four
 #: 64-column swizzled panels a row.  At 256 a consumer thread's float32
 #: O takes 128 registers, so that width runs 64-key K/V tiles (S in 32
-#: registers) where 64 and 128 run 128-key tiles (``bk_of`` in the source)
+#: registers) where 64 and 128 run 128-key tiles (``bk_of`` in the
+#: source); 128 launches its own kernel, a persistent grid that runs the
+#: softmax beside the products (``flash_tc128_kernel``)
 TC_HEAD_DIMS = (64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -490,26 +490,40 @@ def _cu_source(src):
 
 
 def test_tensor_core_shared_memory_fits_the_card():
-    """The tensor-core kernel's dynamic shared memory, from the constants
-    in its source (alignment slack, a Q block of TC_BM rows, TC_STAGES
-    pairs of K/V tiles of bk_of(d) keys: TC_BK at d 64 / 128, TC_BK_D256
-    at d 256, 3 mbarriers a stage), at each routed head_dim is at most
-    the 232,448 B a block may use on an H100."""
+    """The tensor-core kernels' dynamic shared memory, from the constants
+    in their source, at each routed head_dim is at most the 232,448 B a
+    block may use on an H100.  d 64 / 256 (``flash_tc_kernel``):
+    alignment slack, a Q block of TC_BM rows, TC_STAGES pairs of K/V
+    tiles of bk_of(d) keys (TC_BK at d 64, TC_BK_D256 at d 256), 3
+    mbarriers a stage.  d 128 (``flash_tc128_kernel``, launched with
+    ``smem128_bytes``): the slack, two Q blocks (an item's and the
+    next's), T128_STAGES pairs of 128-key K/V tiles, 4 mbarriers a
+    stage."""
     import re
     text = _cu_source("flash_attention.cu")
     c = {name: int(re.search(r"constexpr int " + name + r" = (\d+);",
                              text).group(1))
          for name in ("TC_BM", "TC_BK", "TC_BK_D256", "TC_STAGES",
-                      "TC_ALIGN")}
+                      "TC_ALIGN", "T128_STAGES")}
     assert "return TC_ALIGN + q_bytes(D) + TC_STAGES * 2 * tile_bytes(D)" \
         in text
     assert "return D == 256 ? TC_BK_D256 : TC_BK;" in text
     assert "tile_bytes(int D) { return bk_of(D) * D * 2; }" in text
+    assert ("return TC_ALIGN + 2 * q_bytes(128) + T128_STAGES * 2 * "
+            "tile_bytes(128)\n         + T128_STAGES * 4 * 8;") in text
+    assert "constexpr int D = 128, BK = 128, ST = T128_STAGES;" in text
+    assert "if constexpr (D == 128) {" in text
+    assert "const int bytes = smem128_bytes();" in text
     for d in FA.TC_HEAD_DIMS:
         bk = c["TC_BK_D256"] if d == 256 else c["TC_BK"]
-        total = (c["TC_ALIGN"] + c["TC_BM"] * d * 2
-                 + c["TC_STAGES"] * 2 * bk * d * 2
-                 + c["TC_STAGES"] * 3 * 8)
+        if d == 128:
+            total = (c["TC_ALIGN"] + 2 * c["TC_BM"] * d * 2
+                     + c["T128_STAGES"] * 2 * bk * d * 2
+                     + c["T128_STAGES"] * 4 * 8)
+        else:
+            total = (c["TC_ALIGN"] + c["TC_BM"] * d * 2
+                     + c["TC_STAGES"] * 2 * bk * d * 2
+                     + c["TC_STAGES"] * 3 * 8)
         assert total <= 232_448, (d, total)
         assert bk % 16 == 0
     assert c["TC_BM"] == 128 and 256 in FA.TC_HEAD_DIMS

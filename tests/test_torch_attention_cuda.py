@@ -1,10 +1,12 @@
-"""The two attention designs for recurrentgemma-9b's served shapes on a
-card: flash attention's tensor-core route at bf16, head_dim 256, and
-decode attention's group kernel (g 6-16), each against its plain version
-run in float32 on the same values at the reference's bfloat16 bound,
-2e-2.  Every test here needs a CUDA device and skips without one; the
-file imports no JAX (the CPU models of both kernels are in
-``tests/test_torch_attention_group.py``).
+"""The attention designs for the served shapes on a card: flash
+attention's tensor-core route at bf16, head_dim 256 (recurrentgemma-9b)
+and head_dim 128 (the persistent, pipelined kernel: deepseek-moe-16b,
+internvl2-26b, mixtral-8x22b, gemma2-27b), and decode attention's group
+kernel (g 6-16), each against its plain version run in float32 on the
+same values at the reference's bfloat16 bound, 2e-2.  Every test here
+needs a CUDA device and skips without one; the file imports no JAX (the
+CPU models of the kernels are in ``tests/test_torch_attention_group.py``
+and ``tests/test_torch_flash_tc_walk.py``).
 """
 
 import importlib
@@ -76,6 +78,48 @@ def test_tensor_core_route_at_d256_on_cuda():
     _close(cc, FA.flash_attention_plain(q.float(), k.float(), v.float(),
                                         window=64))
     assert FA.ROUTES == {"tensor_core": n, "cuda_core": 1}
+
+
+#: (b, t, h, kv, window, cap): the d 128 kernel at deepseek-moe-16b's
+#: heads (16/16) and internvl2-26b's (48/8) at t 2048, causal, and a
+#: ragged t 200 under a window of 64 with softcap 50 at both groupings
+TC128_CASES = [
+    (2, 2048, 16, 16, None, 0.0),
+    (2, 2048, 48, 8, None, 0.0),
+    (1, 200, 16, 16, 64, 50.0),
+    (1, 200, 48, 8, 64, 50.0),
+]
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_at_d128_on_cuda():
+    """bf16 at d 128 takes the tensor-core kernel (every launch counted
+    there, none on the CUDA-core route), within 2e-2 of the plain
+    version, two launches bitwise equal; q blocks that see no key (t > s
+    under a window) come out as zeros."""
+    dev = _cuda()
+    FA.reset_launch_counts()
+    for i, (b, t, h, kv, window, cap) in enumerate(TC128_CASES):
+        sd = 2.0 if cap else 1.5
+        q, k, v = _bf16(dev, 40 + i, (b, t, h, 128), (b, t, kv, 128),
+                        (b, t, kv, 128), sd=(sd, sd, 1.0))
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        torch.cuda.synchronize()
+        _close(got, want)
+        assert torch.equal(got, FA.flash_attention(q, k, v, **kw))
+    q, k, v = _bf16(dev, 49, (1, 256, 32, 128), (1, 64, 16, 128),
+                    (1, 64, 16, 128))
+    got = FA.flash_attention(q, k, v, window=32, softcap=50.0)
+    want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    window=32, softcap=50.0)
+    seen = 64 + 32 - 1
+    _close(got[:, :seen], want[:, :seen])
+    assert not got[:, seen:].any()
+    n = 2 * len(TC128_CASES) + 1
+    assert FA.ROUTES == {"tensor_core": n, "cuda_core": 0}
 
 
 #: (b, s, h, kv, d, cap): g 16 at d 256 (recurrentgemma's ring), g 8 at
