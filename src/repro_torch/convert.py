@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import obs
 from .core.fluid import (FluidState, Scenario, ScenarioDev, StepParams,
                          resolve_device)
 
@@ -100,7 +101,7 @@ def state_from_numpy(st, device=None) -> FluidState:
 
 
 def _np(x: torch.Tensor, f: str) -> np.ndarray:
-    a = x.detach().cpu().numpy()
+    a = obs.to_host(x).numpy()
     return a.astype(np.int32) if f in _STATE_INT else a
 
 

@@ -46,7 +46,7 @@ import torch
 
 from ..kernels import fluid_step as mega
 from ..kernels.capture import CapturedGraph, card_lock, warm_up
-from . import cc
+from . import cc, obs
 from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
                     _step_body, check_routing_paths, clamp_dense_rows,
@@ -632,6 +632,11 @@ class WindowExecutable:
     raises.  On the CPU the same window runs eagerly over the same
     tensors.
 
+    On the mega tier a traced run times one window by the megakernel's
+    phase timers: ``prepare_timed()`` captures, at its first call, a
+    second graph of the window that holds the kernel's timed instance,
+    and an ``advance()`` with ``timed_next`` set replays it.
+
     One run at a time: the entry's tensors hold one batch, so a run takes
     the entry for itself from ``bind`` through its last ``advance`` and
     the copy of its final state (``_sweep_executable``, a context
@@ -643,7 +648,8 @@ class WindowExecutable:
         self.inputs = _tree_map(torch.clone, inputs)
         self.device = self.state.nicq.device
         self.window = window_fn(self.inputs, static)
-        self.graph = None
+        self.graph = self.timed_graph = None
+        self.timed_next = False    # the next advance() replays timed_graph
         self._first = None
         self._bound = token        # the lease whose batch the tensors hold
         self._lock = threading.Lock()     # held by the run using the entry
@@ -689,14 +695,28 @@ class WindowExecutable:
         if self._first is None:
             _copy_into(self.state, st)
 
+    def prepare_timed(self) -> None:
+        """Reset the megakernel's phase timers, and capture the window's
+        timed graph at the first call (``kernels.fluid_step``'s
+        ``phase_timers_on``)."""
+        mega.phase_timers_on()
+        try:
+            if self.timed_graph is None and self.graph is not None:
+                self.timed_graph = CapturedGraph(self._run_window)
+        finally:
+            mega.phase_timers_off()
+
     def advance(self):
+        timed, self.timed_next = self.timed_next, False
         if self._first is not None:
             sample, self._first = self._first, None
             return sample
         if self.graph is None:
             return self._run_window()
-        self.graph.replay()
-        return self.graph.out
+        graph = self.timed_graph if timed and self.timed_graph else \
+            self.graph
+        graph.replay()
+        return graph.out
 
     def acquire(self) -> bool:
         """Take the entry for the calling thread's run (blocking while
@@ -739,9 +759,11 @@ class WindowExecutable:
 
     def _free(self) -> None:
         with card_lock(self.device):
-            if self.graph is not None:
-                self.graph.release()
-            self.graph = self._first = self.inputs = self.window = None
+            for g in (self.graph, self.timed_graph):
+                if g is not None:
+                    g.release()
+            self.graph = self.timed_graph = self._first = None
+            self.inputs = self.window = None
 
 
 #: The sweep-executable cache: every ``Sweep.run`` resolves its trace
@@ -767,17 +789,26 @@ def _sweep_executable(static: WindowStatic, inputs: WindowInputs):
     same structure wait; on the card every run's device work waits for
     the card's lock (``kernels.capture.card_lock``), held here for the
     block."""
+    rec = obs.current()
+
+    def build():
+        with obs.span(rec, "sweep.capture"):
+            return WindowExecutable(inputs, static, token)
+
+    if rec is not None:
+        rec.enter("sweep.lookup")
     token = next(_LEASES)
     key = structural_signature(static, inputs)
     with card_lock(inputs.state.nicq.device):
         while True:
-            entry = SWEEP_EXEC_CACHE.get_or_build(
-                key, lambda: WindowExecutable(inputs, static, token))
+            entry = SWEEP_EXEC_CACHE.get_or_build(key, build)
             if entry.acquire():
                 break
         try:
             if entry._bound != token:
                 entry.bind(inputs, token)
+            if rec is not None:
+                rec.exit()
             yield entry
         finally:
             entry.unlock()
@@ -936,6 +967,9 @@ class Sweep:
         rank's contiguous slice before its plans are built."""
         refuse_unported(reduce=reduce, use_kernels=use_kernels,
                         temperature=temperature)
+        rec = obs.current()
+        if rec is not None:
+            rec.enter("sweep.stage")
         part = None if mesh is None else _mesh_shard(mesh)
         dev = _sweep_device(mesh, device)
         cfg0 = self.points[0].cfg
@@ -969,6 +1003,9 @@ class Sweep:
             st_b, sd_b, par_b = (_tree_map(cut, t)
                                  for t in (st_b, sd_b, par_b))
         dt = float(cfg0.sim.dt)
+        if rec is not None:
+            rec.exit()
+            rec.enter("sweep.plan")
         plan = reduce_plan(sd_b, n_switches=n_sw, n_vcs=self.n_vcs,
                            dense_rows=dense_rows, dt=dt, pool_rows=pool_rows)
         packed = cc.pack_react_rows(par_b.react, par_b.line_rate, plan.dt)
@@ -977,6 +1014,8 @@ class Sweep:
         if tier == "mega":
             mplan = mega.mega_plan(par_b, packed, plan.dt, sd=sd_b,
                                    plan=plan, window=float(k * dt))
+        if rec is not None:
+            rec.exit()
         static = WindowStatic(
             trace_every=k, dt=dt, n_switches=n_sw, reduce=reduce,
             dense_rows=int(dense_rows), tier=tier, n_vcs=self.n_vcs,
@@ -1087,20 +1126,38 @@ class Sweep:
         results are unaffected (padding runs are dropped on return).
         """
         dev = _sweep_device(mesh, device)
-        with card_lock(dev):
-            static, inp, n_samples = self._prepare(
-                n_steps, trace_every, mesh=mesh, reduce=reduce,
-                use_kernels=use_kernels, pad_runs_to=pad_runs_to,
-                min_delay_slots=min_delay_slots, dense_rows=dense_rows,
-                temperature=temperature, min_switches=min_switches,
-                device=dev)
-            with _sweep_executable(static, inp) as runner:
-                final, tr = decimating_scan(None, inp.state, n_samples,
-                                            static.trace_every, static.dt,
-                                            self.n_vcs, runner=runner)
-            if mesh is not None:
-                final, tr = _gather_runs(mesh, final, tr)
-            return self.collect(final, tr, static.trace_every)
+        rec = obs.begin(len(self.points), dev)
+        try:
+            with card_lock(dev):
+                static, inp, n_samples = self._prepare(
+                    n_steps, trace_every, mesh=mesh, reduce=reduce,
+                    use_kernels=use_kernels, pad_runs_to=pad_runs_to,
+                    min_delay_slots=min_delay_slots, dense_rows=dense_rows,
+                    temperature=temperature, min_switches=min_switches,
+                    device=dev)
+                timed = rec is not None and static.tier == "mega" and \
+                    dev.type == "cuda"
+                if rec is not None:
+                    rec.tier = static.tier
+                with _sweep_executable(static, inp) as runner:
+                    if timed:
+                        with obs.span(rec, "sweep.timers"):
+                            runner.prepare_timed()
+                        rec.timed = True
+                    final, tr = decimating_scan(None, inp.state, n_samples,
+                                                static.trace_every,
+                                                static.dt, self.n_vcs,
+                                                runner=runner)
+                if mesh is not None:
+                    with obs.span(rec, "sweep.gather"):
+                        final, tr = _gather_runs(mesh, final, tr)
+                with obs.span(rec, "sweep.collect"):
+                    res = self.collect(final, tr, static.trace_every)
+                if timed:
+                    rec.phases(mega.read_phase_timers())
+                return res
+        finally:
+            obs.end(rec)
 
     def collect(self, final: FluidState, traces: TraceSample,
                 trace_every: int) -> "SweepResult":
@@ -1113,7 +1170,7 @@ class Sweep:
         times = (np.arange(n_samples) + 1) * trace_every \
             * self.points[0].cfg.sim.dt
         # samples stack on axis 0 -> [T, R, ...]; runs lead on host
-        host = TraceSample(*[np.moveaxis(x.cpu().numpy(), 0, 1)[:R]
+        host = TraceSample(*[np.moveaxis(obs.to_host(x).numpy(), 0, 1)[:R]
                              for x in traces])
         fin = state_to_numpy(final)
         fin = FluidState(*[x[:R] for x in fin[:-2]],

@@ -69,7 +69,7 @@ from ..kernels.cc_step import gen_np_step
 from ..kernels.fluid_reduce import (ReduceSchedule, reduce_schedule,
                                     segment_reduce)
 from ..tune import soft
-from . import cc
+from . import cc, obs
 from .params import CCConfig, CCSpec, ROUTING_MODES
 from .routing import PAD, link_incidence
 
@@ -226,6 +226,7 @@ def _flow_jitter(n: int) -> np.ndarray:
 
 def _digest(x: np.ndarray) -> tuple:
     x = np.ascontiguousarray(x)
+    obs.count("digest_bytes", x.nbytes)
     return (x.shape, x.dtype.str, hashlib.sha1(x.tobytes()).hexdigest())
 
 
@@ -450,8 +451,17 @@ _PUT_FIELDS = ("alt_routes", "alt_hops", "vc", "cap_ext", "sink_ext",
 
 def _cached_put(x: np.ndarray, device: torch.device) -> torch.Tensor:
     x = np.ascontiguousarray(x)
-    return _memo_lru(_PUT_CACHE, _PUT_CACHE_SIZE, _digest(x) + (device,),
-                     lambda: torch.from_numpy(x).to(device))
+    missed = []
+
+    def put():
+        missed.append(True)
+        return obs.to_device(torch.from_numpy(x), device)
+
+    out = _memo_lru(_PUT_CACHE, _PUT_CACHE_SIZE, _digest(x) + (device,),
+                    put)
+    if not missed:
+        obs.count("put_hit_bytes", x.nbytes)
+    return out
 
 
 def _upload(cls, arrays: list[dict], device):
@@ -461,7 +471,7 @@ def _upload(cls, arrays: list[dict], device):
         x = np.stack([a[f] for a in arrays])
         if f in _PUT_FIELDS:
             return _cached_put(x, device)
-        return torch.from_numpy(x).to(device)
+        return obs.to_device(torch.from_numpy(x), device)
     return cls(**{f: put(f) for f in cls._fields})
 
 
@@ -509,10 +519,11 @@ def step_params(cfgs, *, temperature: float = 0.0,
     out = {}
     for f in StepParams._fields:
         if f in ("mark", "notif", "react"):
-            out[f] = {k: torch.stack([o[f][k] for o in ones]).to(device)
+            out[f] = {k: obs.to_device(torch.stack([o[f][k] for o in ones]),
+                                       device)
                       for k in ones[0][f]}
         else:
-            out[f] = torch.stack([o[f] for o in ones]).to(device)
+            out[f] = obs.to_device(torch.stack([o[f] for o in ones]), device)
     return StepParams(**out)
 
 
@@ -549,7 +560,8 @@ def init_state(scns, cfgs, delay_slots: int | None = None, *,
     if isinstance(scns, Scenario):
         scns, cfgs = [scns], [cfgs]
     arrs = [state_arrays(s, c, delay_slots) for s, c in zip(scns, cfgs)]
-    up = lambda xs: torch.from_numpy(np.stack(xs)).to(device)  # noqa: E731
+    up = lambda xs: obs.to_device(torch.from_numpy(np.stack(xs)),  # noqa: E731
+                                  device)
     return FluidState(**{
         f: ({k: up([a["cc"][k] for a in arrs]) for k in arrs[0]["cc"]}
             if f == "cc" else up([a[f] for a in arrs]))
@@ -559,7 +571,7 @@ def init_state(scns, cfgs, delay_slots: int | None = None, *,
 def pool_counts(sd: ScenarioDev, n_switches: int) -> np.ndarray:
     """[R, n_switches] links draining into each switch's shared pool."""
     L = sd.cap_ext.shape[1] - 1
-    sinks = sd.sink_ext[:, :L].cpu().numpy()
+    sinks = obs.to_host(sd.sink_ext[:, :L]).numpy()
     return np.stack([np.bincount(sk[sk >= 0], minlength=n_switches)
                      [:n_switches] for sk in sinks])
 
@@ -580,9 +592,9 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
     L = sd.cap_ext.shape[1] - 1
     S = L * n_vcs
     N = F * K * H
-    perm = sd.red_perm.cpu().numpy()
-    seg = sd.red_seg.cpu().numpy()
-    off = sd.red_off.cpu().numpy()
+    perm = obs.to_host(sd.red_perm).numpy()
+    seg = obs.to_host(sd.red_seg).numpy()
+    off = obs.to_host(sd.red_off).numpy()
     base = (np.arange(R, dtype=np.int64) * N)[:, None]
     dense_src = None
     if dense_rows:
@@ -597,7 +609,7 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
         dense_src = np.where(pos < lens[None], base[None] + rows, R * N)
     # per-switch pool: links stably sorted by sink switch; host-sink
     # links sort after every switch and add exact zeros, so they drop out
-    pperm = sd.pool_perm.cpu().numpy()
+    pperm = obs.to_host(sd.pool_perm).numpy()
     counts = pool_counts(sd, n_switches)
     p_rows = max(int(counts.max(initial=0)), int(pool_rows or 0))
     starts = np.concatenate([np.zeros((R, 1), np.int64),
@@ -625,14 +637,17 @@ def reduce_plan(sd: ScenarioDev, *, n_switches: int, n_vcs: int,
     walk0 = np.concatenate([[0], np.cumsum(n_real)[:-1]]).astype(np.int64)
     seg_off = np.concatenate([(walk0[:, None] + off[:, :S]).reshape(-1),
                               [int(n_real.sum())]])
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int64)) \
-        .to(dev)                                                # noqa: E731
+    t = lambda x: obs.to_device(                                 # noqa: E731
+        torch.from_numpy(np.ascontiguousarray(x, np.int64)), dev)
+    sched = reduce_schedule(seg_off)
     return ReducePlan(
         dense_src=None if dense_src is None else t(dense_src),
         pool_src=t(pool_src), seg_rows=t(seg_rows), seg_ids=t(seg_ids),
-        seg_off=t(seg_off), seg_sched=reduce_schedule(seg_off, dev),
+        seg_off=t(seg_off),
+        seg_sched=sched._replace(items=obs.to_device(sched.items, dev),
+                                 lanes=obs.to_device(sched.lanes, dev)),
         pool_off=t(pool_off),
-        dt=torch.tensor(dt, dtype=torch.float32, device=dev))
+        dt=obs.to_device(torch.tensor(dt, dtype=torch.float32), dev))
 
 
 # ---------------------------------------------------------------------------

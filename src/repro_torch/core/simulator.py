@@ -21,7 +21,7 @@ import torch
 
 from ..kernels import fluid_step as mega
 from ..kernels.capture import card_lock
-from . import cc
+from . import cc, obs
 from .fluid import (FluidState, Scenario, _step_body, check_routing_paths,
                     dense_reduce_rows, init_state, kernel_tier,
                     make_step_fn, reduce_plan, refuse_unported,
@@ -139,20 +139,28 @@ def decimating_scan(step, st: FluidState, n_samples: int,
     state into its own tensors and each ``runner.advance()`` runs one
     window there (a CUDA-graph replay on the card) and returns its
     sample, which is copied into preallocated ``[T, R, ...]`` buffers.
-    The final state is returned as a copy of the runner's."""
+    The final state is returned as a copy of the runner's.
+
+    A run that keeps a trace (``core.obs``) records the runner's loop as
+    a ``sweep.windows`` span, each window as a ``window`` span in it."""
     if runner is not None:
-        runner.start(st)
-        out = None
-        for i in range(n_samples):
-            sample = runner.advance()
-            if out is None:
-                out = TraceSample(*[x.new_empty((n_samples,) + x.shape)
-                                    for x in sample])
-            copy_leaves([buf[i] for buf in out], list(sample))
-        final = runner.state
-        return FluidState(*[x.clone() for x in final[:-2]],
-                          cc={k: v.clone() for k, v in final.cc.items()},
-                          t=final.t.clone()), out
+        rec = obs.current()
+        with obs.span(rec, "sweep.windows"):
+            runner.start(st)
+            out = None
+            for i in range(n_samples):
+                sample = runner.advance() if rec is None \
+                    else rec.window(runner, last=i == n_samples - 1)
+                if out is None:
+                    out = TraceSample(*[x.new_empty((n_samples,) + x.shape)
+                                        for x in sample])
+                copy_leaves([buf[i] for buf in out], list(sample))
+                if rec is not None:
+                    rec.exit()
+            final = runner.state
+            return FluidState(*[x.clone() for x in final[:-2]],
+                              cc={k: v.clone() for k, v in final.cc.items()},
+                              t=final.t.clone()), out
     window = block_fn or flow_window(step, trace_every, dt, n_vcs,
                                      st.nicq.device)
     samples = []

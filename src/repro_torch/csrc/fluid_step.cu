@@ -166,6 +166,70 @@ __host__ __device__ inline long long smem_words(const MegaArgs& a) {
               : 0);
 }
 
+// Phase timers of the step loop, in the timed instance of the kernel's
+// body only (mega_kernel_timed, launched while fs_phase_timers has them
+// on; mega_kernel, the instance every other launch and every captured
+// graph runs, holds no timer code).  A mark follows the loop's entry, the
+// top of each step, every barrier inside it and the loop's exit; thread 0
+// of block 0 (run 0, cluster rank 0) adds the clock64() cycles since the
+// previous mark, and one, to the slot of each mark, and the loop's
+// %globaltimer nanoseconds, entry to exit, to loop_ns.  Everything lives
+// in global memory, written by the one thread.  kernels/fluid_step.py
+// names the slots (PHASES).
+constexpr int kPhaseMarks = 16;
+
+struct PhaseAcc {
+  unsigned long long cycles[kPhaseMarks];  // per mark: the intervals'
+  unsigned long long n[kPhaseMarks];       // cycles, and their count
+  unsigned long long last;                 // clock64() at the last mark
+  unsigned long long c0, t0;               // clock64(), %globaltimer at entry
+  unsigned long long loop_ns, loop_cycles, loops;
+};
+
+__device__ PhaseAcc g_phase;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void phase_enter() {
+  if constexpr (kTimed) {
+    if (threadIdx.x != 0 || blockIdx.x != 0) return;
+    volatile PhaseAcc* p = &g_phase;
+    const unsigned long long now = (unsigned long long)clock64();
+    p->last = now;
+    p->c0 = now;
+    p->t0 = global_ns();
+  }
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void phase_mark(int k) {
+  if constexpr (kTimed) {
+    if (threadIdx.x != 0 || blockIdx.x != 0) return;
+    volatile PhaseAcc* p = &g_phase;
+    const unsigned long long now = (unsigned long long)clock64();
+    p->cycles[k] += now - p->last;
+    p->n[k] += 1;
+    p->last = now;
+  }
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void phase_exit(int k) {
+  if constexpr (kTimed) {
+    if (threadIdx.x != 0 || blockIdx.x != 0) return;
+    phase_mark<true>(k);
+    volatile PhaseAcc* p = &g_phase;
+    p->loop_cycles += p->last - p->c0;
+    p->loop_ns += global_ns() - p->t0;
+    p->loops += 1;
+  }
+}
+
 // A barrier of the run: the cluster's, with release / acquire so that
 // what a CTA pushed into another's shared memory is seen after it; for
 // a run of one CTA the CTA's own, which needs no cluster-scope fence and
@@ -352,10 +416,10 @@ __device__ __forceinline__ int wire_of(int q, int V, int S, int L) {
 }
 
 // MH: the hop capacity of the per-flow register arrays (>= H; the
-// launch picks the smallest of 4, 6 and kMaxHops that holds H)
-template <int MH>
-__global__ void __launch_bounds__(kThreads, 1)
-mega_kernel(const __grid_constant__ MegaArgs a) {
+// launch picks the smallest of 4, 6 and kMaxHops that holds H); kTimed:
+// the phase timers' instance
+template <int MH, bool kTimed>
+__device__ __forceinline__ void mega_body(const MegaArgs& a) {
   extern __shared__ float smem[];
   const int c = (int)a.cluster;
   const int rank = (int)cluster_rank();
@@ -517,7 +581,9 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
   __syncthreads();
   run_sync(c);     // every CTA of the cluster is up, its copy is done
 
+  phase_enter<kTimed>();
   for (long long step = 0; step < a.n_substeps; ++step) {
+    phase_mark<kTimed>(0);
     const float t_sec = __fmul_rn((float)t, dt);
     const int rslot = t % D;
 
@@ -538,12 +604,15 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
           }
       }
       run_sync(c);
+      phase_mark<kTimed>(1);
       walk<1>(a, sinkw, chan, pidx, rows, off, q0, q1, qsum);
       __syncthreads();
+      phase_mark<kTimed>(2);
       if (push_rows) clear_rows<3>(sinkw, n_own_rows);
       for (int l = l0 + tid; l < l1; l += nth)
         push(wsw, l, wire_sum(qsum, q_cap, 0, l, V, q0), c);
       run_sync(c);
+      phase_mark<kTimed>(3);
       for (int f = f0 + tid; f < f1; f += nth) {
         int newk = 0;
         const int cur = pidx[f];
@@ -616,8 +685,10 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       np_tmr[f] = g.np_tmr;         // post-tick timer until phase 5
     }
     run_sync(c);
+    phase_mark<kTimed>(4);
     walk<3>(a, sinkw, chan, pidx, rows, off, q0, q1, qsum);
     __syncthreads();
+    phase_mark<kTimed>(5);
     if (push_rows && K > 1) clear_rows<3>(sinkw, n_own_rows);
     for (int l = l0 + tid; l < l1; l += nth) {
       for (int v = 0; v < V; ++v) {
@@ -629,6 +700,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       push(wsw, l, wire_sum(qsum, q_cap, 2, l, V, q0), c);
     }
     run_sync(c);
+    phase_mark<kTimed>(6);
 
     // ---- 2b. transfers: shares, queues, delivery, crossing-rate EWMA ------
     for (int f = f0 + tid; f < f1; f += nth) {
@@ -703,10 +775,12 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       if (!block) a.tr_inst_thr[rF + f] = __fdiv_rn(deliv, dt);
     }
     run_sync(c);
+    phase_mark<kTimed>(7);
 
     // ---- 3. PFC: per-queue hysteresis, wire sums, pool inputs -------------
     walk<3>(a, sinkw, chan, pidx, rows, off, q0, q1, qsum);
     __syncthreads();
+    phase_mark<kTimed>(8);
     if (push_rows && K > 1) clear_rows<2>(sinkw, n_own_rows);
     {
       const float xoff_q = V == 1 ? fp[FR_XOFF]
@@ -729,6 +803,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       }
     }
     run_sync(c);
+    phase_mark<kTimed>(9);
 
     // ---- 3b. the switch pool; 4a. fair-share surplus inputs ---------------
     {
@@ -764,6 +839,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
         }
     }
     run_sync(c);
+    phase_mark<kTimed>(10);
 
     // ---- 3c. paused = max(hysteresis, pool); 4a. surplus sums -------------
     walk<2>(a, sinkw, chan, pidx, rows, off, q0, q1, qsum);
@@ -787,12 +863,14 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       if (npz) atomicAdd(&cnt[0], npz);
     }
     __syncthreads();
+    phase_mark<kTimed>(11);
     if (push_rows && K > 1) clear_rows<1>(sinkw, n_own_rows);
     for (int l = l0 + tid; l < l1; l += nth) {
       push(wsur, l, wire_sum(qsum, q_cap, 0, l, V, q0), c);
       push(whvy, l, wire_sum(qsum, q_cap, 1, l, V, q0), c);
     }
     run_sync(c);
+    phase_mark<kTimed>(12);
 
     // ---- 4b. marking, 5. notification + delay line, 6. reaction -----------
     int nonmin = 0;
@@ -994,6 +1072,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
     }
     if (nonmin) atomicAdd(&cnt[1], nonmin);
     __syncthreads();
+    phase_mark<kTimed>(13);
 
     // ---- this CTA's partials to rank 0, which folds the run's trace -------
     if (tid == 0) {
@@ -1009,6 +1088,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
       for (int i = 0; i < 4 + V; ++i) cnt[i] = 0;
     }
     run_sync(c);
+    phase_mark<kTimed>(14);
     if (rank == 0 && tid == 0) {
       float mq = __int_as_float(xred[0]);
       int npz = xred[1], nm = xred[2];
@@ -1040,6 +1120,7 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
     }
     ++t;
   }
+  phase_exit<kTimed>(15);
 
   if (block) {
     const float window = fp[FR_WINDOW];
@@ -1049,6 +1130,21 @@ mega_kernel(const __grid_constant__ MegaArgs a) {
   }
   if (rank == 0 && tid == 0) *((int*)a.st_out[L_T] + r) = t;
 }
+
+template <int MH>
+__global__ void __launch_bounds__(kThreads, 1)
+mega_kernel(const __grid_constant__ MegaArgs a) {
+  mega_body<MH, false>(a);
+}
+
+template <int MH>
+__global__ void __launch_bounds__(kThreads, 1)
+mega_kernel_timed(const __grid_constant__ MegaArgs a) {
+  mega_body<MH, true>(a);
+}
+
+// The device whose launches run mega_kernel_timed (-1: none).
+int g_timed_device = -1;
 
 cudaLaunchConfig_t launch_config(const MegaArgs& a, long long smem_bytes,
                                  cudaStream_t st, cudaLaunchAttribute* at) {
@@ -1079,9 +1175,17 @@ extern "C" int fs_mega(const MegaArgs* args, long long smem_bytes,
       smem_bytes != smem_words(*args) * 4)
     return (int)cudaErrorInvalidValue;
   if (args->H > kMaxHops) return (int)cudaErrorInvalidValue;
-  void (*kern)(MegaArgs) = args->H <= 4   ? mega_kernel<4>
-                           : args->H <= 6 ? mega_kernel<6>
-                                          : mega_kernel<kMaxHops>;
+  int dev = -1;
+  const bool timed = g_timed_device >= 0 &&
+                     cudaGetDevice(&dev) == cudaSuccess &&
+                     dev == g_timed_device;
+  void (*kern)(MegaArgs) =
+      timed ? (args->H <= 4   ? mega_kernel_timed<4>
+               : args->H <= 6 ? mega_kernel_timed<6>
+                              : mega_kernel_timed<kMaxHops>)
+            : (args->H <= 4   ? mega_kernel<4>
+               : args->H <= 6 ? mega_kernel<6>
+                              : mega_kernel<kMaxHops>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1111,6 +1215,54 @@ extern "C" long long fs_max_clusters(long long cluster,
   err = cudaOccupancyMaxActiveClusters(&n, mega_kernel<kMaxHops>, &cfg);
   return err == cudaSuccess ? (long long)n : -(long long)err;
 }
+
+// The phase timers on the current device (on != 0: its launches from now
+// run mega_kernel_timed) or off; reset != 0 zeroes the accumulators
+// first, ordered on `stream`.  Turning them on loads the timed instances,
+// so that a graph captured next may hold them.
+extern "C" int fs_phase_timers(int on, int reset, void* stream) {
+  int dev = -1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && reset) {
+    void* acc = nullptr;
+    err = cudaGetSymbolAddress(&acc, g_phase);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(acc, 0, sizeof(PhaseAcc), (cudaStream_t)stream);
+  }
+  if (err == cudaSuccess && on) {
+    void (*const timed[])(MegaArgs) = {
+        mega_kernel_timed<4>, mega_kernel_timed<6>,
+        mega_kernel_timed<kMaxHops>};
+    cudaFuncAttributes fa;
+    for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+      err = cudaFuncGetAttributes(&fa, timed[i]);
+  }
+  if (err == cudaSuccess) g_timed_device = on ? dev : -1;
+  return (int)err;
+}
+
+// The marks' cycles and counts (kPhaseMarks each) and the loop's
+// nanoseconds, cycles and launches (3), once the work on `stream` is done.
+extern "C" int fs_phase_read(unsigned long long* cycles,
+                             unsigned long long* n,
+                             unsigned long long* loop, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  PhaseAcc acc;
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      &acc, g_phase, sizeof(PhaseAcc), 0, cudaMemcpyDeviceToHost, st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  if (err != cudaSuccess) return (int)err;
+  for (int k = 0; k < kPhaseMarks; ++k) {
+    cycles[k] = acc.cycles[k];
+    n[k] = acc.n[k];
+  }
+  loop[0] = acc.loop_ns;
+  loop[1] = acc.loop_cycles;
+  loop[2] = acc.loops;
+  return 0;
+}
+
+extern "C" long long fs_phase_marks() { return (long long)kPhaseMarks; }
 
 extern "C" long long fs_args_size() { return (long long)sizeof(MegaArgs); }
 

@@ -2,7 +2,7 @@
 PyTorch version (``cc_step``, ``fluid_reduce``, ``fluid_step``,
 ``flash_attention``, ``decode_attention``), the wrappers that dispatch
 by device (``ops``), the plain oracles (``ref``), the ``nvcc`` build
-step (``build``) and the megakernel's phase timer on the card
+step (``build``) and the megakernel's per-phase table on the card
 (``phase_probe``).
 
 The package binds what ``repro.kernels`` binds: the functions

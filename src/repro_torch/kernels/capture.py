@@ -100,11 +100,13 @@ class CapturedGraph:
         for c, b in zip(counters, before):
             self.launches.append({k: c[k] - b[k] for k in c if c[k] != b[k]})
             c.update(b)
+        # the counters a replay adds to, resolved once
+        self._adds = [(c, d) for c, d in zip(counters, self.launches) if d]
         self.graph, self.out = graph, out
 
     def replay(self) -> None:
         self.graph.replay()
-        for c, d in zip(_counters(), self.launches):
+        for c, d in self._adds:
             for k, n in d.items():
                 c[k] += n
 

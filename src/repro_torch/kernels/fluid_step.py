@@ -34,6 +34,7 @@ There is no fallback to the flow tier.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Callable, NamedTuple
 
@@ -112,7 +113,41 @@ _SIGNATURES = {
     "fs_args_size": ([], _I),
     "fs_row_sizes": ([_I], _I),
     "fs_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "fs_phase_timers": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "fs_phase_read": ([_P, _P, _P, _P], ctypes.c_int),
+    "fs_phase_marks": ([], _I),
 }
+
+#: the phase timers' marks in the step loop of ``csrc/fluid_step.cu``, in
+#: slot order: where the mark sits (the top of a step, the barrier it
+#: follows, the loop's exit) and the ``// ---- ...`` phase that the
+#: interval ending there closes.  Slot 0 (after the first step) and the
+#: exit close the tail of a step, after its last barrier.
+PHASES = (
+    ("step", "this CTA's partials to rank 0, which folds the run's trace"),
+    ("run_sync", "0. path selection (min / valiant / ugal)"),
+    ("__syncthreads", "0. path selection (min / valiant / ugal)"),
+    ("run_sync", "0. path selection (min / valiant / ugal)"),
+    ("run_sync", "1. generation (+ notification-timer tick), "
+                 "2a. transfer sums"),
+    ("__syncthreads", "1. generation (+ notification-timer tick), "
+                      "2a. transfer sums"),
+    ("run_sync", "1. generation (+ notification-timer tick), "
+                 "2a. transfer sums"),
+    ("run_sync", "2b. transfers: shares, queues, delivery, "
+                 "crossing-rate EWMA"),
+    ("__syncthreads", "3. PFC: per-queue hysteresis, wire sums, "
+                      "pool inputs"),
+    ("run_sync", "3. PFC: per-queue hysteresis, wire sums, pool inputs"),
+    ("run_sync", "3b. the switch pool; 4a. fair-share surplus inputs"),
+    ("__syncthreads", "3c. paused = max(hysteresis, pool); "
+                      "4a. surplus sums"),
+    ("run_sync", "3c. paused = max(hysteresis, pool); 4a. surplus sums"),
+    ("__syncthreads", "4b. marking, 5. notification + delay line, "
+                      "6. reaction"),
+    ("run_sync", "this CTA's partials to rank 0, which folds the run's trace"),
+    ("exit", "this CTA's partials to rank 0, which folds the run's trace"),
+)
 
 
 def reset_launch_counts() -> None:
@@ -330,6 +365,7 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
     ``ReducePlan``, for ``pool_off``).  On a card the geometry's cluster
     is held to what the card keeps resident at once (``cluster`` forces
     it, see ``mega_geometry``)."""
+    from ..core import obs
     R = par.line_rate.shape[0]
     dev = par.line_rate.device
     src = {"dt": dt.to(torch.float32).expand(R),
@@ -340,7 +376,8 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
                                            "ecp_beta")},
            **par.mark, **par.notif, **par.react}
     cols = [src[f].to(torch.float32).reshape(R, 1) for f in FLOAT_ROW]
-    cols += [packed_react[name].to(dev).expand(R, n) for name, n in REACT_ROWS]
+    cols += [obs.to_device(packed_react[name], dev).expand(R, n)
+             for name, n in REACT_ROWS]
     irow = torch.stack([getattr(par, f).to(torch.int32) for f in INT_ROW],
                        dim=1)
     _, F, K, H = sd.alt_routes.shape
@@ -357,8 +394,8 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
         lib = _lib()
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         max_active = lib.fs_max_clusters
-    geo = mega_geometry(R, F, K, H, L, V, NSW, sd.red_off.cpu().numpy(),
-                        plan.pool_off.cpu().numpy(), n_sm=n_sm,
+    geo = mega_geometry(R, F, K, H, L, V, NSW, obs.to_host(sd.red_off).numpy(),
+                        obs.to_host(plan.pool_off).numpy(), n_sm=n_sm,
                         max_active=max_active, cluster=cluster)
     return MegaPlan(frow=torch.cat(cols, dim=1).contiguous(),
                     irow=irow.contiguous(), path_q=path_q,
@@ -369,6 +406,63 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
                     red_rows=sd.red_perm.to(torch.int32).contiguous(),
                     pool_rows=sd.pool_perm.to(torch.int32).contiguous(),
                     geometry=geo)
+
+
+def phase_timers_on() -> None:
+    """The megakernel's phase timers on the current card: accumulators
+    reset (ordered on the current stream), and its launches from now, and
+    the graphs captured meanwhile, run the kernel's timed instance."""
+    lib = _lib()
+    if lib.fs_phase_marks() != len(PHASES):
+        raise RuntimeError("fluid_step: PHASES and csrc/fluid_step.cu "
+                           "differ in their number of marks")
+    _check_err("phase_timers", lib.fs_phase_timers(
+        1, 1, torch.cuda.current_stream().cuda_stream))
+
+
+def phase_timers_off() -> None:
+    """Launches from now run the untimed kernel (a graph captured with the
+    timers on still runs the timed one)."""
+    _check_err("phase_timers", _lib().fs_phase_timers(
+        0, 0, torch.cuda.current_stream().cuda_stream))
+
+
+def read_phase_timers() -> dict:
+    """The timers' accumulators, once the current stream's work is done:
+    ``loop_ns`` and ``loop_cycles`` (the step loops of run 0's first CTA,
+    summed over the timed launches), ``loops`` (those launches) and
+    ``phases``: one ``{slot, barrier, phase, cycles, n}`` a mark (``PHASES``),
+    ``cycles`` over the ``n`` intervals that ended there."""
+    n = len(PHASES)
+    cycles, counts, loop = (np.zeros(k, np.uint64) for k in (n, n, 3))
+    _check_err("phase_timers", _lib().fs_phase_read(
+        cycles.ctypes.data, counts.ctypes.data, loop.ctypes.data,
+        torch.cuda.current_stream().cuda_stream))
+    return {"loop_ns": int(loop[0]), "loop_cycles": int(loop[1]),
+            "loops": int(loop[2]),
+            "phases": [{"slot": k, "barrier": b, "phase": ph,
+                        "cycles": int(cycles[k]), "n": int(counts[k])}
+                       for k, (b, ph) in enumerate(PHASES)]}
+
+
+@contextlib.contextmanager
+def phase_timers():
+    """``with phase_timers() as out:`` — the timers on for the block
+    (``phase_timers_on``); at exit ``out`` holds ``read_phase_timers()``
+    and the timers are off."""
+    phase_timers_on()
+    out: dict = {}
+    try:
+        yield out
+        out.update(read_phase_timers())
+    finally:
+        phase_timers_off()
+
+
+def _check_err(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: {_lib().fs_error_string(err).decode()} "
+                           f"({err})")
 
 
 def _state_leaves(st):
