@@ -16,6 +16,10 @@
     ``WindowExecutable`` per batch structure, on the card a CUDA graph
     of one trace window over tensors the entry owns, replayed once a
     window (``Sweep.prepare`` stays the eager API).
+  * ``STAGE_CACHE`` — what a sweep stages from its scenarios alone (the
+    batched ``ScenarioDev``, the ``ReducePlan``, the megakernel's
+    tables), kept by the scenarios' content: the sweeps of a parameter
+    grid over one set of scenarios stage only their configs.
   * ``Sweep.run(mesh=...)`` — the run axis cut over the ranks of a
     ``torch.distributed.device_mesh.DeviceMesh`` (one process a rank,
     e.g. ``repro_torch.dist.sweep_mesh()``): each rank advances its slice
@@ -35,6 +39,7 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -49,9 +54,10 @@ from ..kernels.capture import CapturedGraph, card_lock, warm_up
 from . import cc, obs
 from .exec_cache import ExecutableCache, structural_signature
 from .fluid import (FluidState, ReducePlan, Scenario, ScenarioDev,
-                    _step_body, check_routing_paths, clamp_dense_rows,
-                    delay_depth, dense_reduce_rows, init_state, is_soft,
-                    kernel_tier, pool_counts, reduce_plan, refuse_unported,
+                    _PUT_FIELDS, _digest, _lru_get, _lru_put, _step_body,
+                    check_routing_paths, clamp_dense_rows, delay_depth,
+                    dense_reduce_rows, init_state, is_soft, kernel_tier,
+                    pool_counts, reduce_plan, refuse_unported,
                     resolve_device, scenario_arrays, step_params, _upload)
 from .params import CCConfig, CCSpec
 from .routing import PAD, route_hops
@@ -776,6 +782,40 @@ class WindowExecutable:
 SWEEP_EXEC_CACHE = ExecutableCache(capacity=32, name="sweep")
 
 
+class Structure(NamedTuple):
+    """One entry of ``STAGE_CACHE``: what ``Sweep._prepare`` derives from
+    a batch's scenarios and its static arguments alone."""
+
+    sd: ScenarioDev           # this rank's slice, with a mesh
+    padded: list              # the padded host scenarios (init_state's)
+    n_switches: int
+    delay_slots: int
+    dense_rows: int
+    plan: ReducePlan
+    tables: object            # mega tier: the MegaPlan's MegaTables
+    nbytes: int               # device bytes of sd, plan and tables
+    put_bytes: int            # bytes of the whole stack's _PUT_FIELDS
+
+
+#: The stage cache: ``Sweep._prepare`` keeps each batch's ``Structure``
+#: here, a bounded LRU (``fluid._lru_get`` / ``_lru_put``) keyed by the
+#: content of every point's ``Scenario`` (``_content_key``, never the
+#: objects' identity: a scenario edited in place misses) and every static
+#: argument the entry depends on.  The entries' tensors are shared by
+#: every sweep that hits them, so nothing may write into them: the window
+#: runners copy them into tensors of their own.
+STAGE_CACHE: "collections.OrderedDict[tuple, Structure]" = \
+    collections.OrderedDict()
+STAGE_CACHE_SIZE = 4
+
+
+def _content_key(scn: Scenario) -> tuple:
+    """Each field of a ``Scenario`` as stored: its shape, dtype and the
+    SHA-1 of its bytes (``fluid._digest``, counted in ``digest_bytes``),
+    None where it has none."""
+    return tuple(None if v is None else _digest(np.asarray(v)) for v in scn)
+
+
 _LEASES = itertools.count(1)
 
 
@@ -961,6 +1001,13 @@ class Sweep:
         WindowInputs, n_samples)`` — everything a launch needs short of
         the window runner.  Shared by ``prepare`` and ``run``.
 
+        What depends on the scenarios and the static arguments alone (the
+        batched ``ScenarioDev``, the padded host scenarios, the switch
+        count, delay depth and dense rows, the ``ReducePlan`` and, on the
+        mega tier, the ``MegaTables``) is a ``Structure`` of
+        ``STAGE_CACHE``: a sweep that finds its scenarios' content there
+        stages only its configs (initial state, parameters, packed rows).
+
         With a ``mesh`` the batch is padded to a multiple of its size,
         staged whole as one launch stages it (delay slots, switch count,
         dense rows and pool depth from the whole batch), and cut to this
@@ -980,40 +1027,67 @@ class Sweep:
         R_target = R if pad_runs_to is None else max(R, int(pad_runs_to))
         if part is not None and R_target % part[1]:
             R_target += part[1] - R_target % part[1]
+        dt = float(cfg0.sim.dt)
+        tier = kernel_tier(use_kernels)
+        opt = lambda x: None if x is None else int(x)      # noqa: E731
+        key = (tuple(map(_content_key, scns)), R_target, part,
+               self.n_vcs, opt(min_switches), opt(min_delay_slots),
+               opt(dense_rows), reduce, tier, dev, dt, k)
         if R_target > R:                      # replicate the last run
             scns = scns + [scns[-1]] * (R_target - R)
             cfgs = cfgs + [cfgs[-1]] * (R_target - R)
-        sd_b, padded, n_sw = stack_scenarios(scns, n_vcs=self.n_vcs,
-                                             device=dev)
-        if min_switches is not None:
-            n_sw = max(n_sw, int(min_switches))
-        D = max(delay_depth(s) for s in padded)
-        if min_delay_slots is not None:
-            D = max(D, int(min_delay_slots))
+        hit = _lru_get(STAGE_CACHE, key)
+        if hit is None:
+            sd_b, padded, n_sw = stack_scenarios(scns, n_vcs=self.n_vcs,
+                                                 device=dev)
+            put_bytes = sum(obs.nbytes(getattr(sd_b, f))
+                            for f in _PUT_FIELDS)
+            if min_switches is not None:
+                n_sw = max(n_sw, int(min_switches))
+            D = max(delay_depth(s) for s in padded)
+            if min_delay_slots is not None:
+                D = max(D, int(min_delay_slots))
+            dense_rows = batch_dense_rows(padded, self.n_vcs, reduce,
+                                          dense_rows)
+        else:
+            obs.count("stage_hit_bytes", hit.nbytes)
+            # the put cache's own tensors, reused without an upload
+            obs.count("put_hit_bytes", hit.put_bytes)
+            sd_b, padded, n_sw = hit.sd, hit.padded, hit.n_switches
+            D, dense_rows = hit.delay_slots, hit.dense_rows
         st_b = init_state(padded, cfgs, delay_slots=D, device=dev)
         par_b = step_params(cfgs, temperature=temperature, device=dev)
-        dense_rows = batch_dense_rows(padded, self.n_vcs, reduce,
-                                      dense_rows)
         pool_rows = None
         if part is not None:                  # this rank's slice
-            pool_rows = int(pool_counts(sd_b, n_sw).max(initial=0))
             per = R_target // part[1]
             lo = part[0] * per
             cut = lambda x: x[lo:lo + per]                 # noqa: E731
-            st_b, sd_b, par_b = (_tree_map(cut, t)
-                                 for t in (st_b, sd_b, par_b))
-        dt = float(cfg0.sim.dt)
+            st_b, par_b = _tree_map(cut, st_b), _tree_map(cut, par_b)
+            if hit is None:
+                pool_rows = int(pool_counts(sd_b, n_sw).max(initial=0))
+                sd_b = _tree_map(cut, sd_b)
         if rec is not None:
             rec.exit()
             rec.enter("sweep.plan")
-        plan = reduce_plan(sd_b, n_switches=n_sw, n_vcs=self.n_vcs,
-                           dense_rows=dense_rows, dt=dt, pool_rows=pool_rows)
+        if hit is None:
+            plan = reduce_plan(sd_b, n_switches=n_sw, n_vcs=self.n_vcs,
+                               dense_rows=dense_rows, dt=dt,
+                               pool_rows=pool_rows)
+            tables = mega.mega_tables(sd_b, plan) if tier == "mega" \
+                else None
+            hit = _lru_put(STAGE_CACHE, STAGE_CACHE_SIZE, key, Structure(
+                sd=sd_b, padded=padded, n_switches=n_sw, delay_slots=D,
+                dense_rows=int(dense_rows), plan=plan, tables=tables,
+                nbytes=sum(obs.nbytes(x) for t in (sd_b, plan, tables)
+                           for x in _tensor_leaves(t, [])),
+                put_bytes=put_bytes))
+        sd_b, plan = hit.sd, hit.plan
         packed = cc.pack_react_rows(par_b.react, par_b.line_rate, plan.dt)
-        tier = kernel_tier(use_kernels)
         mplan = None
         if tier == "mega":
-            mplan = mega.mega_plan(par_b, packed, plan.dt, sd=sd_b,
-                                   plan=plan, window=float(k * dt))
+            mplan = mega.MegaPlan(
+                *mega.mega_rows(par_b, packed, plan.dt, float(k * dt)),
+                *hit.tables)
         if rec is not None:
             rec.exit()
         static = WindowStatic(
@@ -1058,8 +1132,8 @@ class Sweep:
 
         block = None
         if static.tier == "mega":
-            body, mplan = step, mega.mega_plan(
-                par_b, inp.packed, plan.dt, sd=sd_b, plan=plan)
+            body, mplan = step, inp.mplan._replace(
+                frow=mega.mega_rows(par_b, inp.packed, plan.dt)[0])
 
             def step(st):
                 return mega.megastep(st, sd_b, par_b, plan, mplan,

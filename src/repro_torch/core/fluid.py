@@ -233,22 +233,32 @@ def _digest(x: np.ndarray) -> tuple:
 _MEMO_LOCK = threading.Lock()
 
 
-def _memo_lru(cache: collections.OrderedDict, maxsize: int, key, fn):
-    """Bounded content-keyed LRU for the host-side incidence cache and
-    the upload cache; safe from several threads (``fn`` runs outside the
-    lock: two threads may both compute a value, the first stored wins)."""
+def _lru_get(cache: collections.OrderedDict, key):
+    """``cache[key]``, made the newest entry (None: no such entry)."""
     with _MEMO_LOCK:
         hit = cache.get(key)
         if hit is not None:
             cache.move_to_end(key)
-            return hit
-    out = fn()
+        return hit
+
+
+def _lru_put(cache: collections.OrderedDict, maxsize: int, key, value):
+    """Store ``value`` under ``key`` unless a value is there already,
+    which wins and is returned; the oldest entries past ``maxsize`` go."""
     with _MEMO_LOCK:
-        out = cache.setdefault(key, out)
+        value = cache.setdefault(key, value)
         cache.move_to_end(key)
         while len(cache) > maxsize:
             cache.popitem(last=False)
-    return out
+    return value
+
+
+def _memo_lru(cache: collections.OrderedDict, maxsize: int, key, fn):
+    """Bounded content-keyed LRU for the host-side incidence cache and
+    the upload cache; safe from several threads (``fn`` runs outside the
+    lock: two threads may both compute a value, the first stored wins)."""
+    hit = _lru_get(cache, key)
+    return hit if hit is not None else _lru_put(cache, maxsize, key, fn())
 
 
 _INC_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()

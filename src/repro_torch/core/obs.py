@@ -10,9 +10,11 @@ nothing back from the card, and each span site costs one ``if``.
 Spans (name, parent, start and end from ``time.perf_counter_ns()``):
 
     sweep.run       the whole ``Sweep.run``
-      sweep.stage     stacking, padding, initial state, parameters, dense
-                      rows and the mesh cut (``Sweep._prepare``)
-      sweep.plan      ``reduce_plan``, ``pack_react_rows``, ``mega_plan``
+      sweep.stage     the stage cache's lookup, initial state, parameters,
+                      the mesh cut, and on a miss stacking, padding and
+                      dense rows (``Sweep._prepare``)
+      sweep.plan      ``pack_react_rows``, ``mega_rows``, and on a miss
+                      ``reduce_plan`` and ``mega_tables``
       sweep.lookup    the window runner: signature, cache, ``bind``
         sweep.capture   a miss only: the entry built (warm-up, capture)
       sweep.timers    mega tier on a card: the phase timers reset, and
@@ -56,10 +58,13 @@ import time
 
 import torch
 
-#: the counters a record holds: bytes copied host -> card, bytes a put
-#: cache hit did not upload, bytes hashed for the content caches, bytes
-#: copied card -> host
-COUNTERS = ("h2d_bytes", "put_hit_bytes", "digest_bytes", "d2h_bytes")
+#: the counters a record holds: bytes copied host -> card, bytes of the
+#: put cache's tensors reused without an upload (a put cache hit, or a
+#: stage cache hit that holds them), bytes hashed for the content caches,
+#: bytes copied card -> host, device bytes of a staged batch structure
+#: that a stage cache hit reused (``experiments.STAGE_CACHE``)
+COUNTERS = ("h2d_bytes", "put_hit_bytes", "digest_bytes", "d2h_bytes",
+            "stage_hit_bytes")
 #: finished records kept
 KEEP = 16
 

@@ -341,12 +341,11 @@ def row_positions(red_perm: torch.Tensor, red_off: torch.Tensor, L: int,
         torch.int32)
 
 
-class MegaPlan(NamedTuple):
-    """Per-run parameter rows, int32 tables and the launch geometry of
-    one batch, packed once."""
+class MegaTables(NamedTuple):
+    """The structural half of a ``MegaPlan``: the batch's int32 tables
+    and launch geometry, which depend on its scenarios alone
+    (``mega_tables``)."""
 
-    frow: torch.Tensor        # [R, n_float_row()] f32
-    irow: torch.Tensor        # [R, len(INT_ROW)] int32
     path_q: torch.Tensor      # [R, F, K, H] int32 queue of each hop (S: PAD)
     path_n: torch.Tensor      # [R, F, K] int32 hop count
     path_pos: torch.Tensor    # [R, F, K, H] int32 row's owner and place
@@ -355,16 +354,25 @@ class MegaPlan(NamedTuple):
     geometry: MegaGeometry
 
 
-def mega_plan(par, packed_react: dict, dt: torch.Tensor,
-              window: float = 0.0, *, sd, plan,
-              cluster: int | None = None) -> MegaPlan:
-    """Pack ``StepParams`` (+ the packed reaction rows and the trace
-    window length in seconds) into the kernel's two per-run rows, the
-    batch ``sd``'s paths and incidence rows into int32 tables, and
-    choose the launch geometry from its CSR offsets (``plan`` is its
-    ``ReducePlan``, for ``pool_off``).  On a card the geometry's cluster
-    is held to what the card keeps resident at once (``cluster`` forces
-    it, see ``mega_geometry``)."""
+class MegaPlan(NamedTuple):
+    """Per-run parameter rows, int32 tables and the launch geometry of
+    one batch, packed once: ``mega_rows`` then ``MegaTables``."""
+
+    frow: torch.Tensor        # [R, n_float_row()] f32
+    irow: torch.Tensor        # [R, len(INT_ROW)] int32
+    path_q: torch.Tensor
+    path_n: torch.Tensor
+    path_pos: torch.Tensor
+    red_rows: torch.Tensor
+    pool_rows: torch.Tensor
+    geometry: MegaGeometry
+
+
+def mega_rows(par, packed_react: dict, dt: torch.Tensor,
+              window: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(frow, irow)``: ``StepParams`` (+ the packed reaction rows and
+    the trace window length in seconds) packed into the kernel's two
+    per-run rows."""
     from ..core import obs
     R = par.line_rate.shape[0]
     dev = par.line_rate.device
@@ -380,7 +388,18 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
              for name, n in REACT_ROWS]
     irow = torch.stack([getattr(par, f).to(torch.int32) for f in INT_ROW],
                        dim=1)
-    _, F, K, H = sd.alt_routes.shape
+    return torch.cat(cols, dim=1).contiguous(), irow.contiguous()
+
+
+def mega_tables(sd, plan, *, cluster: int | None = None) -> MegaTables:
+    """The batch ``sd``'s paths and incidence rows as int32 tables, and
+    the launch geometry chosen from its CSR offsets (``plan`` is its
+    ``ReducePlan``, for ``pool_off``).  On a card the geometry's cluster
+    is held to what the card keeps resident at once (``cluster`` forces
+    it, see ``mega_geometry``)."""
+    from ..core import obs
+    R, F, K, H = sd.alt_routes.shape
+    dev = sd.alt_routes.device
     L = sd.cap_ext.shape[1] - 1
     S = sd.red_off.shape[1] - 2
     V = S // L if L else 1
@@ -397,15 +416,23 @@ def mega_plan(par, packed_react: dict, dt: torch.Tensor,
     geo = mega_geometry(R, F, K, H, L, V, NSW, obs.to_host(sd.red_off).numpy(),
                         obs.to_host(plan.pool_off).numpy(), n_sm=n_sm,
                         max_active=max_active, cluster=cluster)
-    return MegaPlan(frow=torch.cat(cols, dim=1).contiguous(),
-                    irow=irow.contiguous(), path_q=path_q,
-                    path_n=sd.alt_hops.to(torch.int32).contiguous(),
-                    path_pos=row_positions(sd.red_perm, sd.red_off, L, V,
-                                           geo.cluster).reshape(
-                                               rt.shape).contiguous(),
-                    red_rows=sd.red_perm.to(torch.int32).contiguous(),
-                    pool_rows=sd.pool_perm.to(torch.int32).contiguous(),
-                    geometry=geo)
+    return MegaTables(path_q=path_q,
+                      path_n=sd.alt_hops.to(torch.int32).contiguous(),
+                      path_pos=row_positions(sd.red_perm, sd.red_off, L, V,
+                                             geo.cluster).reshape(
+                                                 rt.shape).contiguous(),
+                      red_rows=sd.red_perm.to(torch.int32).contiguous(),
+                      pool_rows=sd.pool_perm.to(torch.int32).contiguous(),
+                      geometry=geo)
+
+
+def mega_plan(par, packed_react: dict, dt: torch.Tensor,
+              window: float = 0.0, *, sd, plan,
+              cluster: int | None = None) -> MegaPlan:
+    """``mega_rows`` and ``mega_tables`` of one batch as its
+    ``MegaPlan``."""
+    return MegaPlan(*mega_rows(par, packed_react, dt, window),
+                    *mega_tables(sd, plan, cluster=cluster))
 
 
 def phase_timers_on() -> None:

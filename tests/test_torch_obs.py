@@ -8,8 +8,10 @@ On the CPU:
   * with tracing off no record is kept, no ``record_function`` entered,
     and the result is bitwise the traced run's; under ``torch.profiler``
     each span but ``window`` is a profiler range of its name;
-  * the put cache's counters: a cold cache hashes and uploads the staged
-    fields, a second sweep of the structure hits on the same bytes;
+  * the content caches' counters: a cold cache hashes the scenarios and
+    hashes and uploads the staged fields, a second sweep of the structure
+    hits the stage cache on the staged structure's bytes and reuses the
+    put cache's fields;
   * the timers' marks in ``csrc/fluid_step.cu``: one after every barrier
     of the step loop, named in ``kernels.fluid_step.PHASES`` by the
     barrier and the ``// ----`` comment above it;
@@ -36,7 +38,7 @@ torch.set_num_threads(1)      # tiny tensors: threads only add overhead
 
 from repro_torch.core import (CCScheme, PAPER_CONFIG,         # noqa: E402
                               ScenarioSpec, Sweep)
-from repro_torch.core import fluid, obs                       # noqa: E402
+from repro_torch.core import experiments, fluid, obs          # noqa: E402
 from repro_torch.core.experiments import _tensor_leaves       # noqa: E402
 from repro_torch.kernels import fluid_step as FS              # noqa: E402
 
@@ -162,17 +164,28 @@ def test_put_cache_counters():
     sweep = _sweep(5)
     fluid._PUT_CACHE.clear()
     fluid._INC_CACHE.clear()
+    experiments.STAGE_CACHE.clear()
     cold, res = _traced(sweep)
-    sd = sweep.prepare(N_STEPS, trace_every=TRACE, device="cpu").sd
+    stg = sweep.prepare(N_STEPS, trace_every=TRACE, device="cpu")
+    sd = stg.sd
     put = sum(obs.nbytes(getattr(sd, f)) for f in fluid._PUT_FIELDS)
     # each run's int32 route stack, digested for the incidence cache by
     # the upload and again by the dense walk's row count
     incidence = 2 * sd.alt_routes.numel() * 4
+    # every field of each point's scenario, as stored, for the stage
+    # cache's key
+    raw = sum(np.asarray(v).nbytes for p in sweep.points
+              for v in p.scenario if v is not None)
+    structure = _nbytes(stg.sd) + _nbytes(stg.plan)
     assert cold.counters["put_hit_bytes"] == 0
-    assert cold.counters["digest_bytes"] == put + incidence
+    assert cold.counters["stage_hit_bytes"] == 0
+    assert cold.counters["digest_bytes"] == raw + put + incidence
+    # a warm run finds the structure staged: it hashes its scenarios
+    # alone and reuses the put cache's tensors without a lookup
     warm, res2 = _traced(sweep)
     assert warm.counters["put_hit_bytes"] == put
-    assert warm.counters["digest_bytes"] == put + incidence
+    assert warm.counters["stage_hit_bytes"] == structure
+    assert warm.counters["digest_bytes"] == raw
     assert_bitwise(res2, res)
 
 
@@ -356,6 +369,7 @@ def test_h2d_bytes_are_the_staged_tensors_on_cuda():
     stg = sweep.prepare(N_STEPS, trace_every=TRACE, device=dev)
     staged = sum(_nbytes(x) for x in (stg.state, stg.sd, stg.par, stg.plan))
     fluid._PUT_CACHE.clear()
+    experiments.STAGE_CACHE.clear()
     with obs.recording():
         sweep.run(N_STEPS, trace_every=TRACE, device=dev)
     rec = obs.last()
